@@ -8,28 +8,45 @@ process per source, all started together) into ``build/prometheus_torch/``.
 Phases (any failure ends the script with a non-zero exit):
 
 1. the card's name and power limit, as ``nvidia-smi`` reports them;
-2. build both kernels;
+2. build the four kernels: A (flash attention forward), A-bwd (its
+   backward), B (tile compositing) and C (the compositing gradient);
 3. hold each kernel against its plain PyTorch version at the shapes the main
-   path gives it, TF32 off: kernel A (flash attention forward) at every
-   attention shape of flagship ``generate``; kernel B (tile compositor) on a
-   synthetic 524,288-gaussian scene rendered into 8 views at 512x512 with tile
-   capacity 1024. Prints the error against the stated tolerance, the
-   kernel's time, the plain version's time, the bound and, for A, the time of
-   ``torch.nn.functional.scaled_dot_product_attention`` (a yardstick only;
-   the port never calls it);
+   paths give it, TF32 off: kernel A at every attention shape of flagship
+   ``generate``; kernel B on a synthetic 524,288-gaussian scene rendered
+   into 8 views at 512x512 with tile capacity 1024; A-bwd at the two
+   attention shapes the stage-1 train step differentiates; kernel C on a
+   262,144-gaussian scene in the train step's 16 views at 256x256 with
+   random upstream gradients. Prints the error against the stated
+   tolerance, the kernel's time, the plain version's time, the bound and,
+   for A and A-bwd, the time of ``torch.nn.functional.scaled_dot_product_
+   attention`` forward or backward (a yardstick only; the port never calls
+   it);
 4. build the flagship-width pipeline (SD-2.1 U-Net, CLIP ViT-H text tower,
    GS decoder with its cross-view DiT; random bf16 weights from a seed) and
    run ``generate`` with given cameras: 8 views, image 256, render 512, and
    4 Euler steps with joint CFG 7.5 and rescale 0.7;
-5. print per-stage times, peak memory and both launch counters (set to 0
-   just before ``generate`` and read just after), and check that both
-   kernels ran and every output is finite and of the expected shape;
+5. print per-stage times, peak memory and the launch counters (set to 0
+   just before ``generate`` and read just after), and check that A and B
+   ran and every output is finite and of the expected shape;
 6. profile one more (warm) ``generate`` with ``torch.profiler``: device time
    by kernel class and the device's idle share;
-7. print the ``kernels`` JSON line and, last, the ``ok`` line.
+7. build the flagship stage-1 trainer (``prometheus_torch.train``: GS
+   decoder at full width, bf16-mixed, AdamW, EMA; random weights from a
+   seed) and run 3 train steps on synthetic batches of 4 scenes x (4 input
+   + 4 novel views) at 256x256 (the batch drops to 2, then 1, only if 4
+   does not fit, and says so). Prints cold and warm step seconds, stage
+   seconds, loss, ``grad_norm``, peak memory and the launch counters of one
+   warm step (set to 0 just before it, read just after; A, A-bwd, B and C
+   must each be > 0), and checks that loss and gradients are finite and
+   that the parameters and the EMANorm magnitudes moved;
+8. profile one more warm train step: device time by kernel class and the
+   idle share;
+9. print the ``kernels`` JSON line (each kernel's ``launches`` from the path
+   that runs it: ``generate`` for A and B, the train step for A-bwd and C)
+   and, last, the ``ok`` line.
 
-Long logs (the ``nvcc -Xptxas -v`` reports, the profile's kernel table, the
-per-shape attention rows) go to ``build/chip_smoke/``.
+Long logs (the ``nvcc -Xptxas -v`` reports, the profiles' kernel tables,
+the per-shape attention rows) go to ``build/chip_smoke/``.
 """
 from __future__ import annotations
 
@@ -72,15 +89,38 @@ ATTN_TOL = 1e-2
 # composited RGB and alpha (fp32 throughout; the two versions differ only in
 # the order of float operations)
 COMP_TOL = 1e-4
+# A-bwd's shapes on the flagship train step, (B, T, H, D): the DiT's joint
+# attention over 4 scenes x 4 input views of 16x16 tokens, and the GS
+# decoder's VAE mid block over 16 latents of 32x32
+ATTN_BWD_SHAPES = [((4, 1024, 16, 72), "GS-decoder cross-view DiT"),
+                   ((16, 1024, 1, 512), "GS-decoder VAE mid block")]
+# A-bwd (bf16 in and out; P and dS rounded to bf16 for the tensor-core
+# products) against the fp32 plain backward on the same inputs, upcast, per
+# gradient, scaled by max|ref|: the CPU emulation of its arithmetic
+# (tests/test_torch_kernels.py) stays under 5e-3, a dropped query or key
+# tile or a missing D_i term lands above 0.1
+ATTN_BWD_TOL = 1e-2
+# kernel C (fp32 throughout) per gradient row, scaled by max|ref| of the row
+COMPB_TOL = 1e-4
 # fp32 operations of the compositor per (pixel, instance) pair. Every pair a
 # tile walks: offsets 2, quadratic form 7, exp and its two clamps 4, cutoff
 # tests 2. Only the pairs kept by the cutoff: weight 1, four accumulations 8,
 # alpha sum 1, transmittance update 2.
 COMP_OPS_WALKED, COMP_OPS_KEPT = 15, 12
+# fp32 operations of the compositing gradient per (pixel, instance) pair.
+# Every pair walked: alpha as above (15) and the transmittance product (2).
+# Only the pairs with a nonzero alpha: u = c gC + z gZ + gA (9), the weight
+# (1), the suffix sum (2), dalpha (5), dsigma (2), dopacity (3), the mean
+# and conic gradients (12), color and depth gradients (4), and the sums of
+# the ten gradients over the tile's pixels (10).
+COMPB_OPS_WALKED, COMPB_OPS_KEPT = 17, 48
 PROMPT = "a cozy wooden cabin in a snowy forest"
 # Euler steps of the flagship generate (the reference samples 50; 4 keep the
 # run short) and the seed of the random weights, cameras and noise
 STEPS, SEED = 4, 0
+# train steps of the stage-1 phase (one cold, two warm) and the batch sizes
+# tried in turn (the configuration's 4, cut only if it does not fit)
+TRAIN_STEPS, TRAIN_BATCHES = 3, (4, 2, 1)
 
 
 def log(msg: str) -> None:
@@ -112,12 +152,28 @@ def cuda_time_ms(fn, iters: int = 10, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
+def all_kernels():
+    from prometheus_torch.ops.attention import FLASH_ATTN_BWD, FLASH_ATTN_FWD
+    from prometheus_torch.ops.gaussian.compositor import (COMPOSITE_BWD,
+                                                          COMPOSITE_FWD)
+
+    return {"flash_attn_fwd": FLASH_ATTN_FWD, "flash_attn_bwd": FLASH_ATTN_BWD,
+            "composite_fwd": COMPOSITE_FWD, "composite_bwd": COMPOSITE_BWD}
+
+
+def zero_counts() -> None:
+    for k in all_kernels().values():
+        k.launches = 0
+
+
+def read_counts() -> dict:
+    return {name: k.launches for name, k in all_kernels().items()}
+
+
 def phase_build():
-    from prometheus_torch.ops.attention import FLASH_ATTN_FWD
-    from prometheus_torch.ops.gaussian.compositor import COMPOSITE_FWD
     from prometheus_torch.utils.cuda_build import build
 
-    kernels = [FLASH_ATTN_FWD, COMPOSITE_FWD]
+    kernels = list(all_kernels().values())
     t0 = time.perf_counter()
     build(kernels)
     LOG_DIR.mkdir(parents=True, exist_ok=True)
@@ -276,11 +332,144 @@ def phase_compositor() -> dict:
                 shape=[n_t, 16, cap])
 
 
+def phase_attention_bwd() -> dict:
+    import torch
+    import torch.nn.functional as F
+
+    from prometheus_torch.ops.attention import (FLASH_ATTN_BWD,
+                                                flash_attention_bwd,
+                                                flash_attention_bwd_plain,
+                                                flash_attention_fwd)
+
+    g = torch.Generator(device="cuda").manual_seed(3)
+    rows, worst, worst_scaled = [], 0.0, 0.0
+    for shape, where in ATTN_BWD_SHAPES:
+        q, k, v, do = (torch.randn(shape, generator=g, device="cuda",
+                                   dtype=torch.bfloat16) for _ in range(4))
+        o, lse = flash_attention_fwd(q, k, v, with_lse=True)
+        grads = flash_attention_bwd(q, k, v, o, lse, do)
+        torch.cuda.synchronize()
+        ref = flash_attention_bwd_plain(q.float(), k.float(), v.float(),
+                                        o.float(), lse, do.float())
+        errs = [float((a.float() - r).abs().max()) for a, r in zip(grads, ref)]
+        scaled = [e / float(r.abs().max()) for e, r in zip(errs, ref)]
+        del grads, ref
+        ms = cuda_time_ms(lambda: flash_attention_bwd(q, k, v, o, lse, do))
+        plain_ms = cuda_time_ms(
+            lambda: flash_attention_bwd_plain(q, k, v, o, lse, do), iters=3)
+        # yardstick: autograd backward through the library attention
+        qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_()
+                      for x in (q, k, v))
+        out_t = F.scaled_dot_product_attention(qt, kt, vt)
+        do_t = do.transpose(1, 2).contiguous()
+        lib_ms = cuda_time_ms(lambda: torch.autograd.grad(
+            out_t, (qt, kt, vt), do_t, retain_graph=True), iters=10)
+        b, t, h, d = shape
+        # recompute S, then dV, dP, dQ, dK: 10 B H T^2 D operations on
+        # q, k, v, o, dO and lse read once and dq, dk, dv written once
+        bound_ms, bound_by = bound(10.0 * b * h * t * t * d, PEAK_BF16_FLOPS,
+                                   8.0 * b * t * h * d * 2 + 4.0 * b * h * t)
+        ok = max(scaled) <= ATTN_BWD_TOL and all(map(math.isfinite, scaled))
+        log(f"kernel A-bwd {shape} ({where}): max_abs_err dq/dk/dv "
+            + "/".join(f"{e:.3e}" for e in errs) + " scaled_err "
+            + "/".join(f"{e:.3e}" for e in scaled)
+            + f" (tol {ATTN_BWD_TOL:g}) ms {ms:.4f} plain_ms {plain_ms:.4f} "
+            f"sdpa_bwd_ms {lib_ms:.4f} bound_ms {bound_ms:.4f} ({bound_by}) "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise RuntimeError(f"kernel A-bwd disagrees with its plain "
+                               f"version at {shape}: scaled errors {scaled}")
+        worst = max(worst, max(errs))
+        worst_scaled = max(worst_scaled, max(scaled))
+        rows.append(dict(shape=list(shape), ms=ms, plain_ms=plain_ms,
+                         library_ms=lib_ms, bound_ms=bound_ms,
+                         bound_by=bound_by, max_abs_err=max(errs),
+                         scaled_err=max(scaled)))
+        del q, k, v, do, o, lse, qt, kt, vt, out_t, do_t
+    FLASH_ATTN_BWD.launches = 0
+    head = rows[0]
+    return dict(name="flash_attn_bwd", route="cuda",
+                source="prometheus_torch/csrc/flash_attn_bwd.cu",
+                replaces="jax/experimental/pallas/ops/tpu/flash_attention.py"
+                ":941 (_flash_attention_bwd_dkv) and :1287 "
+                "(_flash_attention_bwd_dq), via prometheus_tpu/ops/"
+                "attention.py:87",
+                max_abs_err=worst, scaled_err=worst_scaled, ms=head["ms"],
+                plain_ms=head["plain_ms"], bound_ms=head["bound_ms"],
+                bound_by=head["bound_by"], library_ms=head["library_ms"],
+                shape=head["shape"], shapes=rows)
+
+
+def phase_composite_bwd() -> dict:
+    import torch
+
+    from prometheus_torch.ops.gaussian.compositor import (
+        COMPOSITE_BWD, composite_tiles_bwd, composite_tiles_bwd_plain_counted)
+    from prometheus_torch.ops.gaussian.renderer import bin_view
+
+    # the train step's render: 4 scenes x 4 novel views at 256^2, one
+    # launch for the 16 views; 262,144 gaussians (4 input views x 256^2)
+    size, cap, views, n = 256, 1024, 16, 262144
+    cams, (xyz, colors, opac, scales, quats) = synthetic_scene(
+        n, views, size, seed=4)
+    datas, counts = [], []
+    for i in range(views):
+        dt, c = bin_view(cams[i], xyz, colors, opac, scales, quats, size,
+                         size, tile_capacity=cap)
+        datas.append(dt)
+        counts.append(c)
+    data, counts = torch.cat(datas), torch.cat(counts)
+    del datas
+    n_t = data.shape[0]
+    g = torch.Generator(device="cuda").manual_seed(5)
+    gout = torch.randn(n_t, 8, 256, generator=g, device="cuda")
+    gout[:, 5:] = 0.0
+    grid_w, tpv = size // 16, (size // 16) ** 2
+    out = composite_tiles_bwd(data, gout, counts, grid_w, tpv)
+    torch.cuda.synchronize()
+    ref, walked, kept = composite_tiles_bwd_plain_counted(data, gout, counts,
+                                                          grid_w, tpv)
+    scales_r = ref[:, :10].abs().amax(dim=(0, 2))
+    errs = (out[:, :10] - ref[:, :10]).abs().amax(dim=(0, 2))
+    scaled = float((errs / scales_r).max())
+    err = float(errs.max())
+    pad_zero = float(out[:, 10:].abs().max()) == 0.0
+    ms = cuda_time_ms(lambda: composite_tiles_bwd(data, gout, counts, grid_w,
+                                                  tpv))
+    plain_ms = cuda_time_ms(lambda: composite_tiles_bwd_plain_counted(
+        data, gout, counts, grid_w, tpv), iters=1, warmup=1)
+    pairs_walked, pairs_kept = float(walked.sum()) * 256, float(kept.sum())
+    # data rows 0-9 of every walked slot and gout read once, gdata written
+    nbytes = 4.0 * (10 * float(walked.sum()) + n_t * 8 * 256 + n_t
+                    + n_t * 16 * cap)
+    bound_ms, bound_by = bound(
+        COMPB_OPS_WALKED * pairs_walked + COMPB_OPS_KEPT * pairs_kept,
+        PEAK_FP32_FLOPS, nbytes)
+    ok = scaled <= COMPB_TOL and pad_zero
+    log(f"kernel C ({n_t} tiles x K {cap}, {n} gaussians, {views} views at "
+        f"{size}^2; {int(counts.sum())} instances binned, "
+        f"{int(walked.sum())} slots walked; {pairs_walked:.0f} pixel pairs "
+        f"walked, {pairs_kept:.0f} kept ({pairs_kept / max(pairs_walked, 1):.4f})"
+        f"): max_abs_err {err:.3e} scaled_err {scaled:.3e} (tol "
+        f"{COMPB_TOL:g}) rows 10-15 zero {pad_zero} ms {ms:.4f} plain_ms "
+        f"{plain_ms:.4f} bound_ms {bound_ms:.4f} ({bound_by}) "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise RuntimeError(f"kernel C disagrees with its plain version: "
+                           f"scaled error {scaled} > {COMPB_TOL} or "
+                           f"nonzero pad rows")
+    COMPOSITE_BWD.launches = 0
+    return dict(name="composite_bwd", route="cuda",
+                source="prometheus_torch/csrc/composite_bwd.cu",
+                replaces="prometheus_tpu/ops/gaussian/pallas_backward.py:57",
+                max_abs_err=err, scaled_err=scaled, ms=ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
+                shape=[n_t, 16, cap])
+
+
 def phase_generate(steps: int, seed: int) -> dict:
     import torch
 
-    from prometheus_torch.ops.attention import FLASH_ATTN_FWD
-    from prometheus_torch.ops.gaussian.compositor import COMPOSITE_FWD
     from prometheus_torch.pipeline import build_pipeline
     from prometheus_torch.utils import get_random_cameras
 
@@ -299,14 +488,12 @@ def phase_generate(steps: int, seed: int) -> dict:
               guidance_scale=7.5, guidance_type="joint", cfg_rescale=0.7,
               render_size=512, render_tile_capacity=1024)
     torch.cuda.reset_peak_memory_stats()
-    FLASH_ATTN_FWD.launches = 0
-    COMPOSITE_FWD.launches = 0
+    zero_counts()
     t0 = time.perf_counter()
     result = pipe.generate(PROMPT, **kw)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {"flash_attn_fwd": FLASH_ATTN_FWD.launches,
-                "composite_fwd": COMPOSITE_FWD.launches}
+    launches = read_counts()
     peak = torch.cuda.max_memory_allocated()
     stages = " ".join(f"{k} {v * 1e3:.1f}ms"
                       for k, v in result["timings"].items())
@@ -338,8 +525,8 @@ def phase_generate(steps: int, seed: int) -> dict:
         raise RuntimeError("GS renders leave [-1, 1]")
     if float(mask.min()) < 0.0 or float(mask.max()) > 1.0:
         raise RuntimeError("GS masks leave [0, 1]")
-    for name, count in launches.items():
-        if count <= 0:
+    for name in ("flash_attn_fwd", "composite_fwd"):
+        if launches[name] <= 0:
             raise RuntimeError(f"{name} was not launched by generate")
     log(f"outputs finite and of the expected shapes; mask mean "
         f"{float(mask.mean()):.4f}")
@@ -349,22 +536,30 @@ def phase_generate(steps: int, seed: int) -> dict:
 def kernel_class(name: str) -> str:
     n = name.lower()
     for cls, keys in (("flash_attn_fwd (kernel A)", ("flash_fwd",)),
+                      ("flash_attn_bwd (kernel A-bwd)", ("flash_bwd",)),
                       ("composite_fwd (kernel B)", ("composite_fwd",)),
+                      ("composite_bwd (kernel C)", ("composite_bwd",)),
+                      ("layout (cuDNN NCHW<->NHWC)", ("nchwtonhwc",
+                                                      "nhwctonchw")),
                       ("convolution", ("conv", "implicit", "winograd")),
-                      ("matmul", ("gemm", "xmma", "cutlass", "sm90")),
+                      # cuBLAS names its Hopper GEMMs nvjet_*
+                      ("matmul", ("gemm", "xmma", "cutlass", "sm90",
+                                  "nvjet")),
                       ("sort", ("sort", "radix")),
                       ("reduction", ("reduce", "norm", "softmax")),
                       ("elementwise", ("elementwise", "vectorized",
-                                       "unrolled", "copy", "cat"))):
+                                       "unrolled", "copy", "cat",
+                                       "multi_tensor_apply"))):
         if any(k in n for k in keys):
             return cls
     return "other"
 
 
-def phase_profile(pipe, kw) -> None:
-    """One warm ``generate`` under ``torch.profiler``: device time by
-    kernel class and by kernel, and the device's idle share of the wall
-    time (the profiler's own host overhead is inside that wall time)."""
+def profile_run(label: str, fn, log_name: str):
+    """Run ``fn()`` once under ``torch.profiler``: device time by kernel
+    class and by kernel, and the device's idle share of the wall time (the
+    profiler's own host overhead is inside that wall time). Returns
+    ``fn``'s result."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -372,26 +567,26 @@ def phase_profile(pipe, kw) -> None:
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        result = pipe.generate(PROMPT, **kw)
+        result = fn()
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t0)
+    # device work only: a user annotation (``Optimizer.step#AdamW.step``)
+    # spans kernels that are counted on their own
     kernels = [e for e in prof.key_averages()
                if e.device_type == torch.autograd.DeviceType.CUDA
-               and e.self_device_time_total > 0]
+               and e.self_device_time_total > 0
+               and not getattr(e, "is_user_annotation", False)]
     if not kernels:
-        log("profile: the profiler recorded no device time")
-        return
+        log(f"profile ({label}): the profiler recorded no device time")
+        return result
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
     by_class = {}
     for e in kernels:
         cls = kernel_class(e.key)
         by_class[cls] = by_class.get(cls, 0.0) + e.self_device_time_total / 1e3
-    stages = " ".join(f"{k} {v * 1e3:.1f}ms"
-                      for k, v in result["timings"].items())
-    log(f"profile (warm generate, {kw['num_inference_steps']} steps): wall "
-        f"{wall_ms:.1f} ms, device busy {busy_ms:.1f} ms, idle share "
-        f"{1 - busy_ms / wall_ms:.3f}; stages: {stages}")
-    log("profile by class (ms): " + ", ".join(
+    log(f"profile ({label}): wall {wall_ms:.1f} ms, device busy "
+        f"{busy_ms:.1f} ms, idle share {1 - busy_ms / wall_ms:.3f}")
+    log(f"profile ({label}) by class (ms): " + ", ".join(
         f"{k} {v:.1f}" for k, v in sorted(by_class.items(),
                                           key=lambda kv: -kv[1])))
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)
@@ -399,9 +594,137 @@ def phase_profile(pipe, kw) -> None:
                  count=e.count) for e in top]
     for r in rows[:10]:
         log(f"  {r['ms']:8.2f} ms x{r['count']:<5d} {r['kernel'][:90]}")
-    (LOG_DIR / "profile.json").write_text(json.dumps(dict(
+    (LOG_DIR / log_name).write_text(json.dumps(dict(
         wall_ms=wall_ms, busy_ms=busy_ms, by_class_ms=by_class,
-        stages_s=result["timings"], kernels=rows), indent=1))
+        kernels=rows), indent=1))
+    return result
+
+
+def phase_profile(pipe, kw) -> None:
+    """One warm ``generate`` under the profiler."""
+    result = profile_run(
+        f"warm generate, {kw['num_inference_steps']} steps",
+        lambda: pipe.generate(PROMPT, **kw), "profile.json")
+    log("profiled generate stages: " + " ".join(
+        f"{k} {v * 1e3:.1f}ms" for k, v in result["timings"].items()))
+
+
+def checksums(tensors: dict) -> dict:
+    """Two float64 sums per tensor, to tell whether it moved."""
+    import torch
+
+    with torch.no_grad():
+        return {n: (float(t.double().sum()), float(t.double().square().sum()))
+                for n, t in tensors.items()}
+
+
+def run_train_steps(trainer) -> dict:
+    """``TRAIN_STEPS`` steps on fresh synthetic batches (made on the card
+    before each step, outside its time); the launch counters are set to 0
+    just before the last (warm) step and read just after it."""
+    import torch
+
+    model = trainer.state.model
+    trained = {n: p for n, p in model.named_parameters()
+               if not n.startswith(("vae.encoder", "vae.quant_conv"))}
+    before = checksums(trained)
+    state_before = checksums(dict(model.named_buffers()))
+    torch.cuda.reset_peak_memory_stats()
+    steps = []
+    for i in range(TRAIN_STEPS):
+        batch = trainer.batch()
+        torch.cuda.synchronize()
+        if i == TRAIN_STEPS - 1:
+            zero_counts()
+        t0 = time.perf_counter()
+        m = trainer.step(batch)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = read_counts() if i == TRAIN_STEPS - 1 else None
+        timings = m.pop("timings")
+        steps.append(dict(seconds=seconds, timings=timings,
+                          metrics={k: float(v) for k, v in m.items()}))
+    grads_finite = all(bool(torch.isfinite(p.grad).all())
+                       for p in model.parameters() if p.grad is not None)
+    after = checksums(trained)
+    moved = [n for n in trained if after[n] != before[n]]
+    state_after = checksums(dict(model.named_buffers()))
+    return dict(steps=steps, launches=launches,
+                peak=torch.cuda.max_memory_allocated(),
+                grads_finite=grads_finite, moved=moved, n_trained=len(trained),
+                state_moved=[n for n in state_after
+                             if state_after[n] != state_before[n]],
+                n_state=len(state_after))
+
+
+def phase_train(seed: int):
+    """The flagship stage-1 train step, 3 steps; the batch is cut to 2, then
+    1, only if 4 does not fit in device memory."""
+    import gc
+
+    import torch
+
+    from prometheus_torch.train import build_gsdecoder_trainer
+
+    for batch in TRAIN_BATCHES:
+        t0 = time.perf_counter()
+        trainer = build_gsdecoder_trainer(device="cuda", seed=seed,
+                                          batch_size=batch, timed=True)
+        torch.cuda.synchronize()
+        n_params = sum(p.numel() for p in trainer.state.model.parameters())
+        log(f"phase build_trainer: {time.perf_counter() - t0:.1f} s, "
+            f"{n_params / 1e9:.3f}B parameters (fp32), batch {batch}")
+        try:
+            res = run_train_steps(trainer)
+            break
+        except torch.cuda.OutOfMemoryError as e:
+            log(f"train step at batch {batch} does not fit in device "
+                f"memory: {str(e).splitlines()[0]}")
+        trainer = None
+        gc.collect()
+        torch.cuda.empty_cache()
+    else:
+        raise RuntimeError("the train step does not fit even at batch 1")
+    cfg = trainer.cfg
+    cut = "" if batch == cfg["batch_size"] else (
+        f" (BATCH CUT from {cfg['batch_size']} to {batch}: the configuration's"
+        f" batch does not fit in device memory)")
+    for i, st in enumerate(res["steps"]):
+        met = st["metrics"]
+        log(f"train step {i} ({'cold' if i == 0 else 'warm'}): "
+            f"{st['seconds']:.3f} s; stages " + " ".join(
+                f"{k} {v * 1e3:.1f}ms" for k, v in st["timings"].items())
+            + "; " + " ".join(f"{k} {v:.5g}" for k, v in met.items()))
+    warm = [st["seconds"] for st in res["steps"][1:]]
+    log(f"train step (stage 1, batch {batch} x ({cfg['num_input_views']} in "
+        f"+ {cfg['num_novel_views']} novel views) at {cfg['image_size']}^2, "
+        f"render {cfg['render_size']}^2){cut}: cold "
+        f"{res['steps'][0]['seconds']:.3f} s, warm "
+        + "/".join(f"{w:.3f}" for w in warm) + " s; peak memory "
+        f"{res['peak'] / 2**30:.2f} GiB; launches in the last warm step "
+        f"{res['launches']}; trained leaves moved {len(res['moved'])}/"
+        f"{res['n_trained']}; EMANorm magnitudes moved "
+        f"{len(res['state_moved'])}/{res['n_state']}")
+    for st in res["steps"]:
+        for k in ("loss", "grad_norm"):
+            if not math.isfinite(st["metrics"][k]):
+                raise RuntimeError(f"train step: {k} is not finite")
+    if not res["grads_finite"]:
+        raise RuntimeError("train step: non-finite gradients")
+    if max(st["metrics"]["grad_norm"] for st in res["steps"]) <= 0:
+        raise RuntimeError("train step: no gradient reached the model")
+    for part in ("cross_view_dit.", "vae.decoder."):
+        if not any(n.startswith(part) for n in res["moved"]):
+            raise RuntimeError(f"train step: no parameter of {part} moved")
+    if len(res["state_moved"]) != res["n_state"]:
+        raise RuntimeError("train step: an EMANorm magnitude did not move")
+    for name, count in res["launches"].items():
+        if count <= 0:
+            raise RuntimeError(f"{name} was not launched by the train step")
+    (LOG_DIR / "train_steps.json").write_text(json.dumps(dict(
+        batch=batch, steps=res["steps"], peak_bytes=res["peak"],
+        launches=res["launches"]), indent=1))
+    return trainer, res["launches"]
 
 
 def main() -> int:
@@ -426,17 +749,30 @@ def main() -> int:
     phase_build()
     entry_a = phase_attention()
     entry_b = phase_compositor()
-    launches, pipe, kw = phase_generate(STEPS, SEED)
+    entry_abwd = phase_attention_bwd()
+    entry_c = phase_composite_bwd()
+    gen_launches, pipe, kw = phase_generate(STEPS, SEED)
     phase_profile(pipe, kw)
     del pipe
-    entry_a["launches"] = launches["flash_attn_fwd"]
-    entry_b["launches"] = launches["composite_fwd"]
+    torch.cuda.empty_cache()
+    trainer, train_launches = phase_train(SEED)
+    profile_run("warm train step", trainer.step, "profile_train.json")
+    del trainer
+    for entry, launches in ((entry_a, gen_launches), (entry_b, gen_launches),
+                            (entry_abwd, train_launches),
+                            (entry_c, train_launches)):
+        entry["launches"] = launches[entry["name"]]
+        entry["launches_by_path"] = {
+            "generate": gen_launches[entry["name"]],
+            "train_step": train_launches[entry["name"]]}
     log(f"total {time.perf_counter() - t_start:.1f} s")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
-            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "shape")
-    kernels = [{k: e[k] for k in keys} for e in (entry_a, entry_b)]
-    (LOG_DIR / "attention_shapes.json").write_text(
-        json.dumps(entry_a["shapes"], indent=1))
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "shape",
+            "launches_by_path")
+    entries = (entry_a, entry_b, entry_abwd, entry_c)
+    kernels = [{k: e[k] for k in keys} for e in entries]
+    (LOG_DIR / "attention_shapes.json").write_text(json.dumps(dict(
+        fwd=entry_a["shapes"], bwd=entry_abwd["shapes"]), indent=1))
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

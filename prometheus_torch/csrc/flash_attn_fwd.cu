@@ -21,6 +21,11 @@
 // filled), so D = 64, 72 and 512 all run. D = 512 uses 32-row tiles so the
 // fp32 accumulator fits in shared memory (dynamic shared memory above 48 KB
 // is enabled with cudaFuncSetAttribute).
+//
+// For training the kernel also writes each query row's log-sum-exp of the
+// scaled scores, fp32 (B, H, T) in natural-log units, which the backward
+// (flash_attn_bwd.cu) uses to recompute the probabilities; inference passes
+// a null pointer and writes nothing more.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -85,7 +90,7 @@ template <int DP, int BQ, int BK>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                  const bf16* __restrict__ v, bf16* __restrict__ o,
-                 int T, int H, int D, float scale_log2) {
+                 float* __restrict__ lse, int T, int H, int D, float scale_log2) {
   using L = Layout<DP, BQ, BK>;
   extern __shared__ __align__(128) unsigned char smem[];
   bf16* Qs = reinterpret_cast<bf16*>(smem + L::q_off);
@@ -186,11 +191,17 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     o[base + size_t(q0 + r) * row_stride + c] =
         __float2bfloat16(Os[r * L::LDO + c] / row_l[r]);
   }
+  if (lse != nullptr) {
+    // softmax = exp2(s * scale_log2 - (m + log2 l)); natural log for the API
+    for (int r = threadIdx.x; r < BQ; r += kThreads)
+      lse[size_t(blockIdx.y) * T + q0 + r] =
+          (row_m[r] + log2f(row_l[r])) * 0.6931471805599453f;
+  }
 }
 
 template <int DP, int BQ, int BK>
-int launch(const void* q, const void* k, const void* v, void* o, int B, int T,
-           int H, int D, float scale_log2, cudaStream_t stream) {
+int launch(const void* q, const void* k, const void* v, void* o, float* lse,
+           int B, int T, int H, int D, float scale_log2, cudaStream_t stream) {
   using L = Layout<DP, BQ, BK>;
   if (T % BQ != 0 || T % BK != 0) return int(cudaErrorInvalidValue);
   auto kern = flash_fwd_kernel<DP, BQ, BK>;
@@ -200,23 +211,26 @@ int launch(const void* q, const void* k, const void* v, void* o, int B, int T,
   dim3 grid(T / BQ, B * H);
   kern<<<grid, kThreads, L::bytes, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<bf16*>(o), T, H, D, scale_log2);
+      static_cast<const bf16*>(v), static_cast<bf16*>(o), lse, T, H, D,
+      scale_log2);
   return int(cudaGetLastError());
 }
 
 }  // namespace
 
 // q, k, v, o: contiguous (B, T, H, D) bf16 on the device, 16-byte aligned;
-// D % 8 == 0 and D <= 80, or D == 512.
+// D % 8 == 0 and D <= 80, or D == 512. lse: contiguous (B, H, T) fp32, or
+// null when the caller needs no log-sum-exp.
 // Returns cudaGetLastError() after the launch (0 on success).
 extern "C" int flash_attn_fwd(const void* q, const void* k, const void* v,
-                              void* o, int B, int T, int H, int D, float scale,
-                              void* stream) {
+                              void* o, void* lse, int B, int T, int H, int D,
+                              float scale, void* stream) {
   // head dims of the path: 64 and 72 (padded to 80), and 512
   if (D <= 0 || D % 8 != 0 || (D > 80 && D != 512)) return int(cudaErrorInvalidValue);
   const float scale_log2 = scale * 1.4426950408889634f;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (D <= 64) return launch<64, 64, 64>(q, k, v, o, B, T, H, D, scale_log2, s);
-  if (D <= 80) return launch<80, 64, 64>(q, k, v, o, B, T, H, D, scale_log2, s);
-  return launch<512, 32, 32>(q, k, v, o, B, T, H, D, scale_log2, s);
+  float* l = static_cast<float*>(lse);
+  if (D <= 64) return launch<64, 64, 64>(q, k, v, o, l, B, T, H, D, scale_log2, s);
+  if (D <= 80) return launch<80, 64, 64>(q, k, v, o, l, B, T, H, D, scale_log2, s);
+  return launch<512, 32, 32>(q, k, v, o, l, B, T, H, D, scale_log2, s);
 }

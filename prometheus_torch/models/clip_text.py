@@ -4,9 +4,10 @@ tokenizer (``prometheus_tpu/models/clip_text.py``).
 Vocab 49408, width 1024, 16 heads, 23 layers (SD-2.1 truncates the tower at
 the penultimate layer), causal mask, final LayerNorm, context 77. The
 tokenizer is plain Python: byte-level pre-encoding plus merge ranks from a
-``bpe_simple_vocab_16e6`` merges file. Without one, a deterministic hash
-stands in (wrong ids, right shapes and specials), so every stage still runs
-offline. The text attention is 77 tokens with a causal mask and stays off
+``bpe_simple_vocab_16e6`` merges file. Without one, Python's ``hash`` of
+each token stands in (wrong ids, right shapes and specials), so every stage
+still runs offline; as in the JAX package, those ids hold within one
+process only, since Python salts string hashes per process. The text attention is 77 tokens with a causal mask and stays off
 the flash kernel, as in the JAX package.
 """
 from __future__ import annotations
@@ -139,7 +140,8 @@ class CLIPTokenizer:
             if self.is_exact:
                 ids.extend(self.encoder[t] for t in self._bpe(tok_b).split(" "))
             else:
-                # deterministic fallback: stable hash into the BPE id range
+                # fallback: the token's hash (salted per process, as in the
+                # JAX package) into the BPE id range
                 ids.append(hash(tok_b) % (VOCAB_SIZE - 2))
         return ids
 

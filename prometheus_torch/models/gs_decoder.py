@@ -1,9 +1,10 @@
 """GSDecoderModel: RGB-D latents + Plücker rays -> pixel-aligned 3D Gaussian
-parameters (``prometheus_tpu/models/gs_decoder.py``, decode path).
+parameters (``prometheus_tpu/models/gs_decoder.py``).
 
 The SD VAE decoder emits 14 gaussian channels per pixel. Its ``conv_in``
 takes ``[latents 14, cross-view DiT output 14]`` after ``post_quant_conv`` has
-mapped the first 4, and EMANorms sit after each non-final upsample conv.
+mapped the first 4, and EMANorms sit after each non-final upsample conv. The
+frozen VAE encoder embeds input views (``encode_image``, scale 0.18215).
 """
 from __future__ import annotations
 
@@ -12,6 +13,8 @@ from torch import nn
 
 from .ray_dit import CrossViewDiTWrapped
 from .vae import AutoencoderKL
+
+VAE_SCALE = 0.18215
 
 
 class GSDecoderModel(nn.Module):
@@ -26,19 +29,34 @@ class GSDecoderModel(nn.Module):
         self.vae = AutoencoderKL(
             embed_dim=latent_channel, ch=vae_ch, ch_mult=vae_ch_mult,
             decoder_extra_channels=lat_total * 2 - latent_channel,  # 24
-            decoder_out_ch=gaussian_channels_out, use_ema_norm=True)
+            decoder_out_ch=gaussian_channels_out, use_ema_norm=True,
+            with_encoder=True)
         self.cross_view_dit = CrossViewDiTWrapped(
             latent_channels=lat_total, hidden_size=dit_hidden_size,
             depth=dit_depth, num_heads=dit_num_heads,
             max_num_images=max_num_images)
 
-    def decode_latent(self, latents: torch.Tensor) -> torch.Tensor:
+    def encode_image(self, images: torch.Tensor,
+                     noise: torch.Tensor | None = None) -> torch.Tensor:
+        """``images (B, N, 3, H, W)`` in [-1, 1] -> latents ``(B, N, 4, H/8,
+        W/8)``: the posterior's mode, or ``mean + std * noise`` for a given
+        standard-normal ``noise`` of the latents' shape."""
+        B, N = images.shape[:2]
+        posterior = self.vae.encode(images.reshape((B * N,) + images.shape[2:]))
+        z = posterior.mode() if noise is None else posterior.sample(noise)
+        z = z * VAE_SCALE
+        return z.reshape((B, N) + z.shape[1:])
+
+    def decode_latent(self, latents: torch.Tensor,
+                      train: bool = False) -> torch.Tensor:
         """``(B, N, 14, h, w)`` ([rgb latent 4, depth latent 4, raymap 6])
-        -> raw gaussian parameters ``(B, N, 14, 8h, 8w)``."""
+        -> raw gaussian parameters ``(B, N, 14, 8h, 8w)``; ``train`` updates
+        the EMANorms."""
         B, N, C, h, w = latents.shape
         refined = self.cross_view_dit(latents, t=1000.0)
         x = torch.cat([latents.to(refined.dtype), refined], dim=2)
         x = x.reshape(B * N, 2 * C, h, w)
         lc = self.latent_channel
-        out = self.vae.decode(x[:, :lc], extra_z=x[:, lc:], post_conv=True)
+        out = self.vae.decode(x[:, :lc], extra_z=x[:, lc:], post_conv=True,
+                              train=train)
         return out.reshape((B, N) + out.shape[1:])

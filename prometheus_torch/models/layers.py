@@ -112,14 +112,27 @@ def upsample2x(x: torch.Tensor) -> torch.Tensor:
 
 
 class EMANorm(nn.Module):
-    """Inference side of the EMA magnitude normaliser: ``x / sqrt(ema + 1e-5)``
-    with the EMA of ``mean(x^2)`` a buffer (training updates it; not ported)."""
+    """EMA magnitude normaliser: ``x / sqrt(ema + 1e-5)``, with the EMA of
+    ``mean(x^2)`` kept in a buffer (out of the optimizer's reach).
 
-    def __init__(self):
+    With ``train`` the EMA first moves towards the detached input's
+    ``mean(x^2)`` in float32 (``lerp(mag, ema, beta)``; a NaN magnitude
+    leaves it as it was) and the gain uses the updated value, as the flax
+    module does with its mutable ``batch_stats``.
+    """
+
+    def __init__(self, beta: float = 0.995):
         super().__init__()
+        self.beta = beta
         self.register_buffer("magnitude_ema", torch.ones(()))
 
-    def forward(self, x):
+    def forward(self, x, train: bool = False):
+        if train:
+            with torch.no_grad():
+                mag = x.detach().float().square().mean()
+                ema = self.magnitude_ema
+                new = mag + self.beta * (ema - mag)
+                ema.copy_(torch.where(torch.isnan(mag), ema, new))
         gain = torch.rsqrt(self.magnitude_ema.float() + 1e-5)
         return (x * gain).to(x.dtype)
 
@@ -132,10 +145,10 @@ class Upsample(nn.Module):
         self.conv = conv3x3(channels, channels)
         self.ema_norm = EMANorm() if use_ema_norm else None
 
-    def forward(self, x):
+    def forward(self, x, train: bool = False):
         x = self.conv(upsample2x(x))
         if self.ema_norm is not None:
-            x = self.ema_norm(x)
+            x = self.ema_norm(x, train=train)
         return x
 
 
@@ -160,3 +173,11 @@ class UpsampleConv(nn.Module):
 
     def forward(self, x):
         return self.conv(upsample2x(x))
+
+
+class Downsample(StridedDownsampleConv):
+    """The VAE encoder's stride-2 downsample: the asymmetric (0, 1) pad and
+    a 3x3 conv that keeps the channel count."""
+
+    def __init__(self, channels: int):
+        super().__init__(channels, channels)

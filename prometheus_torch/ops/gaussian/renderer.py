@@ -1,18 +1,22 @@
-"""Batched 3DGS renderer (``prometheus_tpu/ops/gaussian/renderer.py``).
+"""Batched differentiable 3DGS renderer
+(``prometheus_tpu/ops/gaussian/renderer.py``).
 
 Output contract (gsplat ``RGB+ED``, as the reference uses it): RGB is
 alpha-composited, then blended over the background and mapped to [-1, 1];
 depth is the expected depth (accumulated / alpha, no background); alpha is
-in [0, 1]. Each view is projected and binned on its own; the worklists of
-all views then go through ONE compositor launch.
+in [0, 1]. Each view is projected on its own (autograd differentiates the
+projection); the worklists of all views then go through ONE compositor
+launch, forward and backward (``composite_grad.CompositeFunction``: kernel B
+and kernel C).
 """
 from __future__ import annotations
 
 import torch
 
 from ...utils.cameras import camera_c2w, camera_intrinsics, opengl_to_opencv
-from .compositor import gather_rows, run_compositor_kernel, sorted_tile_segments
-from .projection import project_gaussians
+from .composite_grad import composite_tiled_grad
+from .compositor import gather_rows, sorted_tile_segments
+from .projection import Projected, project_gaussians
 
 DEFAULT_BACKGROUND = (1.0, 1.0, 1.0)
 
@@ -25,14 +29,20 @@ def world_to_camera(camera: torch.Tensor) -> torch.Tensor:
     return torch.linalg.inv(c2w_cv)
 
 
+def project_view(camera, xyz, scales, rotations, opacity, h: int, w: int,
+                 near: float = 0.01) -> Projected:
+    """Project one scene's gaussians into one 18-dim camera."""
+    fx, fy, cx, cy, _, _ = camera_intrinsics(camera, h=h, w=w)
+    return project_gaussians(xyz, scales, rotations, world_to_camera(camera),
+                             fx, fy, cx, cy, h, w, near=near,
+                             opacities=opacity)
+
+
 def bin_view(camera, xyz, colors, opacity, scales, rotations, h: int, w: int,
              tile_size: int = 16, tile_capacity: int = 1024,
              max_tiles: tuple = (32, 32), near: float = 0.01):
     """Project and bin one view: ``(data (T, 16, K), counts (T,))``."""
-    w2c = world_to_camera(camera)
-    fx, fy, cx, cy, _, _ = camera_intrinsics(camera, h=h, w=w)
-    proj = project_gaussians(xyz, scales, rotations, w2c, fx, fy, cx, cy,
-                             h, w, near=near, opacities=opacity)
+    proj = project_view(camera, xyz, scales, rotations, opacity, h, w, near)
     g, in_seg, counts = sorted_tile_segments(
         proj, h, w, tile_size, tile_capacity, max_tiles, opacities=opacity)
     return gather_rows(proj, colors, opacity, g, in_seg), counts
@@ -43,23 +53,23 @@ def render_gaussians(cameras: torch.Tensor, gaussians, h: int = 256,
                      tile_capacity: int = 1024, max_tiles: tuple = (32, 32),
                      near: float = 0.01):
     """``cameras (B, N, 18)`` + gaussian tuple -> ``(images (B, N, 3, h, w)
-    in [-1, 1], depths (B, N, 1, h, w), masks (B, N, 1, h, w))``."""
+    in [-1, 1], depths (B, N, 1, h, w), masks (B, N, 1, h, w))``,
+    differentiable with respect to the gaussians."""
     xyz, features, opacity, scales, rotations = (
         g.to(torch.float32) for g in gaussians)
     B, N = cameras.shape[:2]
+    P = xyz.shape[1]
     cameras = cameras.to(torch.float32)
     colors = features[:, :, 0, :]
     opac = opacity[..., 0]
-    datas, counts = [], []
-    for b in range(B):
-        for n in range(N):
-            d, c = bin_view(cameras[b, n], xyz[b], colors[b], opac[b],
-                            scales[b], rotations[b], h, w, tile_size,
-                            tile_capacity, max_tiles, near)
-            datas.append(d)
-            counts.append(c)
-    rgb, depth, alpha = run_compositor_kernel(
-        torch.cat(datas), torch.cat(counts), h, w, tile_size)
+    projs = [project_view(cameras[b, n], xyz[b], scales[b], rotations[b],
+                          opac[b], h, w, near)
+             for b in range(B) for n in range(N)]
+    proj = Projected(*(torch.stack(f) for f in zip(*projs)))
+    rgb, depth, alpha = composite_tiled_grad(
+        proj, colors[:, None].expand(B, N, P, 3).reshape(B * N, P, 3),
+        opac[:, None].expand(B, N, P).reshape(B * N, P), h, w, tile_size,
+        tile_capacity, max_tiles)
     bg = torch.tensor(DEFAULT_BACKGROUND if bg_color is None else bg_color,
                       dtype=torch.float32, device=rgb.device)
     rgb = rgb + (1.0 - alpha[..., None]) * bg

@@ -45,8 +45,8 @@ def load_jax_params(module: nn.Module, tree: Mapping) -> list[str]:
     ``tree`` is either a flax variables dict (``{"params": ...,
     "batch_stats": ...}``) or a bare params tree. Every parameter and buffer
     of ``module`` must receive a value of its shape. Returns the JAX paths
-    that have no counterpart in the port (e.g. the VAE encoder, which the
-    decode-only port does not hold).
+    that have no counterpart in the port (e.g. the VAE encoder of the
+    MV-LDM tree, which the port's inference model does not hold).
     """
     collections = tree if "params" in tree else {"params": tree}
     targets = dict(module.named_parameters())

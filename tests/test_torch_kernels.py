@@ -1,4 +1,6 @@
-"""The two hand-written kernels against their plain PyTorch versions.
+"""The hand-written kernels against their plain PyTorch versions: A (flash
+attention forward), A-bwd (its backward), B (tile compositing) and C (the
+compositing gradient).
 
 This file imports no JAX, so it also runs where only PyTorch is installed.
 On a CPU tensor each wrapper must be its plain version (and count no
@@ -12,7 +14,13 @@ plain version in fp32 on the same inputs, upcast, ``max|out - ref| / max|ref|
 ~0.03-0.5 and the error is scaled by the reference's largest value; the
 kernel's bf16 rounding of probabilities and output accounts for ~2.5e-3 of
 it, a dropped K/V tile for ~0.4. Kernel B (fp32 throughout, the same
-stopping rule) ``atol 1e-4`` on composited RGB and alpha.
+stopping rule) ``atol 1e-4`` on composited RGB and alpha. A-bwd (bf16 in
+and out, P and dS rounded to bf16 for the tensor-core products) against the
+fp32 plain backward on the same inputs, upcast, ``max|out - ref| / max|ref|
+<= 1e-2`` per gradient: an emulation of its arithmetic stays under 5e-3,
+a dropped query or key tile or a missing ``D_i`` term lands above 0.1.
+Kernel C (fp32 throughout) ``max|out - ref| / max|ref| <= 1e-4`` per
+gradient row.
 """
 import math
 
@@ -20,20 +28,28 @@ import numpy as np
 import pytest
 import torch
 
-from prometheus_torch.ops.attention import (FLASH_ATTN_FWD, attention_plain,
-                                            flash_attention,
+from prometheus_torch.ops.attention import (FLASH_ATTN_BWD, FLASH_ATTN_FWD,
+                                            attention_plain, flash_attention,
+                                            flash_attention_bwd,
+                                            flash_attention_bwd_plain,
+                                            flash_attention_fwd,
                                             scaled_dot_product_attention,
                                             use_flash)
 from prometheus_torch.ops.gaussian import (composite_tiles,
+                                           composite_tiles_bwd,
+                                           composite_tiles_bwd_plain,
                                            composite_tiles_plain,
                                            gather_rows, project_gaussians,
                                            sorted_tile_segments)
 from prometheus_torch.ops.gaussian.compositor import (
-    COMPOSITE_FWD, composite_tiles_plain_counted)
+    COMPOSITE_BWD, COMPOSITE_FWD, composite_tiles_bwd_plain_counted,
+    composite_tiles_plain_counted)
 
 # kernel A's shapes on the flagship path, (B, T, H, D)
 PATH_SHAPES = [(16, 1024, 5, 64), (2, 2048, 10, 64), (2, 512, 20, 64),
                (16, 1024, 1, 512), (8, 1024, 1, 512), (1, 2048, 16, 72)]
+# the shapes the stage-1 train step differentiates (DiT, VAE decoder mid)
+TRAIN_SHAPES = [(4, 1024, 16, 72), (16, 1024, 1, 512)]
 
 
 @pytest.fixture
@@ -195,3 +211,148 @@ def test_composite_kernel_matches_plain_on_card(rng):
     assert float((out[:, rows] - ref[:, rows]).abs().max()) <= 1e-4
     assert float(ref[:, 4].max()) > 0.99 and not math.isnan(
         float(out.sum()))
+
+
+def test_flash_bwd_wrapper_on_cpu_is_the_plain_version(rng):
+    q, k, v, do = (torch.from_numpy(rng.normal(size=(1, 128, 2, 16))
+                                    .astype(np.float32)) for _ in range(4))
+    o, lse = flash_attention_fwd(q, k, v, with_lse=True)
+    before = FLASH_ATTN_BWD.launches
+    for a, b in zip(flash_attention_bwd(q, k, v, o, lse, do),
+                    flash_attention_bwd_plain(q, k, v, o, lse, do)):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+    assert FLASH_ATTN_BWD.launches == before
+
+
+def test_composite_bwd_wrapper_on_cpu_is_the_plain_version(rng):
+    data = torch.from_numpy(rng.normal(size=(4, 16, 256)).astype(np.float32))
+    data[:, 8] = data[:, 8].abs()
+    gout = torch.from_numpy(rng.normal(size=(4, 8, 256)).astype(np.float32))
+    counts = torch.tensor([0, 5, 256, 130], dtype=torch.int32)
+    before = COMPOSITE_BWD.launches
+    out = composite_tiles_bwd(data, gout, counts, 2, 4)
+    torch.testing.assert_close(
+        out, composite_tiles_bwd_plain(data, gout, counts, 2, 4),
+        rtol=0, atol=0)
+    assert COMPOSITE_BWD.launches == before
+    # rows 10-15 and the slots past each tile's walked chunks stay zero
+    assert float(out[:, 10:].abs().max()) == 0.0
+    assert float(out[0].abs().max()) == 0.0
+    assert float(out[1, :, 128:].abs().max()) == 0.0
+    assert float(out[1, :10, :128].abs().max()) > 0.0
+
+
+def test_composite_bwd_work_counts(rng):
+    # walked: every slot of the chunks a count reaches; kept: the pairs
+    # with a nonzero alpha, counted pixel by pixel
+    data = torch.from_numpy(rng.normal(size=(3, 16, 256)).astype(np.float32))
+    data[:, 0:2] = torch.from_numpy(rng.uniform(0, 32, size=(3, 2, 256))
+                                    .astype(np.float32))
+    data[:, 8] = 0.02 * data[:, 8].abs()
+    gout = torch.from_numpy(rng.normal(size=(3, 8, 256)).astype(np.float32))
+    counts = torch.tensor([0, 200, 100], dtype=torch.int32)
+    _, walked, kept = composite_tiles_bwd_plain_counted(data, gout, counts,
+                                                        2, 4)
+    assert walked.tolist() == [0, 256, 128]
+    for t in range(3):
+        local = t % 4
+        pix = torch.arange(256)
+        px = ((local % 2) * 16 + pix % 16 + 0.5).float()[:, None]
+        py = ((local // 2) * 16 + pix // 16 + 0.5).float()[:, None]
+        blk = data[t, :, :int(walked[t])]
+        dx, dy = px - blk[0], py - blk[1]
+        sigma = 0.5 * (blk[2] * dx * dx + blk[4] * dy * dy) + blk[3] * dx * dy
+        alpha = blk[8] * torch.exp(-torch.clamp_max(sigma, 30.0))
+        assert int(kept[t]) == int(((alpha >= 1 / 255) & (sigma >= 0)).sum())
+    assert int(kept.sum()) > 0
+
+
+def emulate_flash_bwd(q, k, v, do, block=64, drop_tile=None,
+                      drop_delta=False):
+    """A-bwd's arithmetic on the CPU, ``(H, T, D)`` bf16 -> errors of
+    ``(dq, dk, dv)`` scaled by max|ref| against the fp32 backward on the
+    same inputs. P and dS are rounded to bf16 before their products and the
+    gradients to bf16 at the end. ``drop_tile`` (one query tile left out of
+    dK and dV, one key tile out of dQ) and ``drop_delta`` are the faults
+    the tolerance must catch."""
+    scale = q.shape[-1] ** -0.5
+    s = q.float() @ k.float().transpose(1, 2) * scale
+    p = torch.exp(s - torch.logsumexp(s, -1, keepdim=True))
+    o = (p @ v.float()).bfloat16().float()
+    delta = (do.float() * o).sum(-1, keepdim=True)
+    dp = do.float() @ v.float().transpose(1, 2)
+    ref_ds = p * (dp - delta)
+    ref = (ref_ds @ k.float() * scale,
+           ref_ds.transpose(1, 2) @ q.float() * scale,
+           p.transpose(1, 2) @ do.float())
+    ds = p * (dp - (0.0 if drop_delta else delta))
+    pb, dsb = p.bfloat16().float(), ds.bfloat16().float()
+    dsq = dsb.clone()
+    if drop_tile is not None:
+        rows = slice(drop_tile * block, (drop_tile + 1) * block)
+        pb[:, rows], dsb[:, rows], dsq[..., rows] = 0.0, 0.0, 0.0
+    got = (dsq @ k.float() * scale, dsb.transpose(1, 2) @ q.float() * scale,
+           pb.transpose(1, 2) @ do.float())
+    return [float((a.bfloat16().float() - r).abs().max() / r.abs().max())
+            for a, r in zip(got, ref)]
+
+
+@pytest.mark.parametrize("t,d,block", [(512, 72, 64), (512, 512, 16)])
+def test_flash_bwd_tolerance_separates_rounding_from_faults(rng, t, d, block):
+    q, k, v, do = (torch.from_numpy(rng.normal(size=(2, t, d))
+                                    .astype(np.float32)).bfloat16()
+                   for _ in range(4))
+    assert max(emulate_flash_bwd(q, k, v, do, block)) <= 5e-3
+    assert min(emulate_flash_bwd(q, k, v, do, block, drop_tile=3)) >= 0.1
+    assert min(emulate_flash_bwd(q, k, v, do, block,
+                                 drop_delta=True)[:2]) >= 0.1
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", TRAIN_SHAPES)
+def test_flash_bwd_kernel_matches_plain_on_card(shape):
+    need_card()
+    g = torch.Generator(device="cuda").manual_seed(0)
+    q, k, v, do = (torch.randn(shape, generator=g, device="cuda",
+                               dtype=torch.bfloat16) for _ in range(4))
+    o, lse = flash_attention_fwd(q, k, v, with_lse=True)
+    before = FLASH_ATTN_BWD.launches
+    grads = flash_attention_bwd(q, k, v, o, lse, do)
+    torch.cuda.synchronize()
+    assert FLASH_ATTN_BWD.launches == before + 1
+    ref = flash_attention_bwd_plain(q.float(), k.float(), v.float(),
+                                    o.float(), lse, do.float())
+    for a, r in zip(grads, ref):
+        assert a.dtype == torch.bfloat16 and a.shape == shape
+        assert float((a.float() - r).abs().max()) / float(r.abs().max()) \
+            <= 1e-2
+
+
+@pytest.mark.gpu
+def test_composite_bwd_kernel_matches_plain_on_card(rng):
+    need_card()
+    hw, n, dev = 128, 4000, "cuda"
+    xyz = np.concatenate([rng.uniform(-1, 1, size=(n, 2)),
+                          rng.uniform(2.0, 6.0, size=(n, 1))], 1)
+    scales = rng.uniform(0.2, 1.0, size=(n, 3)) * 0.05
+    quats = rng.normal(size=(n, 4))
+    t = lambda a: torch.tensor(a, dtype=torch.float32, device=dev)
+    opac = t(rng.uniform(0.3, 1.0, size=n))
+    proj = project_gaussians(t(xyz), t(scales), t(quats),
+                             torch.eye(4, device=dev), 60.0, 60.0, hw / 2,
+                             hw / 2, hw, hw, opacities=opac)
+    g, in_seg, counts = sorted_tile_segments(proj, hw, hw, 16, 256, (8, 8),
+                                             opac)
+    data = gather_rows(proj, t(rng.uniform(0, 1, size=(n, 3))), opac, g,
+                       in_seg)
+    gout = t(rng.normal(size=(data.shape[0], 8, 256)))
+    grid = hw // 16
+    before = COMPOSITE_BWD.launches
+    out = composite_tiles_bwd(data, gout, counts, grid, grid * grid)
+    torch.cuda.synchronize()
+    assert COMPOSITE_BWD.launches == before + 1
+    ref = composite_tiles_bwd_plain(data, gout, counts, grid, grid * grid)
+    for r in range(10):
+        scale = float(ref[:, r].abs().max())
+        assert float((out[:, r] - ref[:, r]).abs().max()) <= 1e-4 * scale
+    assert float(out[:, 10:].abs().max()) == 0.0
