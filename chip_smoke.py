@@ -14,9 +14,10 @@ Phases (any failure ends the script with a non-zero exit):
    paths give it, TF32 off: kernel A at every attention shape of flagship
    ``generate``; kernel B on a synthetic 524,288-gaussian scene rendered
    into 8 views at 512x512 with tile capacity 1024; A-bwd at the two
-   attention shapes the stage-1 train step differentiates; kernel C on a
-   262,144-gaussian scene in the train step's 16 views at 256x256 with
-   random upstream gradients. Prints the error against the stated
+   attention shapes the stage-1 train step differentiates, with kernel A's
+   log-sum-exp held against the plain one; kernel C on a 262,144-gaussian
+   scene in the train step's 16 views at 256x256 with random upstream
+   gradients. Prints the error against the stated
    tolerance, the kernel's time, the plain version's time, the bound and,
    for A and A-bwd, the time of ``torch.nn.functional.scaled_dot_product_
    attention`` forward or backward (a yardstick only; the port never calls
@@ -34,16 +35,22 @@ Phases (any failure ends the script with a non-zero exit):
    decoder at full width, bf16-mixed, AdamW, EMA; random weights from a
    seed) and run 3 train steps on synthetic batches of 4 scenes x (4 input
    + 4 novel views) at 256x256 (the batch drops to 2, then 1, only if 4
-   does not fit, and says so). Prints cold and warm step seconds, stage
-   seconds, loss, ``grad_norm``, peak memory and the launch counters of one
+   does not fit, and says so). Prints cold and warm step seconds, the
+   forward, backward, AdamW and EMA stages in device-timeline ms (CUDA
+   events recorded at their boundaries, no synchronisation added), loss,
+   ``grad_norm``, peak memory and the launch counters of one
    warm step (set to 0 just before it, read just after; A, A-bwd, B and C
    must each be > 0), and checks that loss and gradients are finite and
    that the parameters and the EMANorm magnitudes moved;
 8. profile one more warm train step: device time by kernel class and the
    idle share;
-9. print the ``kernels`` JSON line (each kernel's ``launches`` from the path
-   that runs it: ``generate`` for A and B, the train step for A-bwd and C)
-   and, last, the ``ok`` line.
+9. hold kernel C against its plain version once more on the worklists and
+   upstream gradients of the last counted train step, with its bound
+   counted from the pairs they walk and keep;
+10. print the ``kernels`` JSON line (each kernel's ``launches`` from the
+    path that runs it: ``generate`` for A and B, the train step for A-bwd
+    and C; C's entry also holds its check on the train step's worklists)
+    and, last, the ``ok`` line.
 
 Long logs (the ``nvcc -Xptxas -v`` reports, the profiles' kernel tables,
 the per-shape attention rows) go to ``build/chip_smoke/``.
@@ -95,11 +102,18 @@ COMP_TOL = 1e-4
 ATTN_BWD_SHAPES = [((4, 1024, 16, 72), "GS-decoder cross-view DiT"),
                    ((16, 1024, 1, 512), "GS-decoder VAE mid block")]
 # A-bwd (bf16 in and out; P and dS rounded to bf16 for the tensor-core
-# products) against the fp32 plain backward on the same inputs, upcast, per
-# gradient, scaled by max|ref|: the CPU emulation of its arithmetic
-# (tests/test_torch_kernels.py) stays under 5e-3, a dropped query or key
-# tile or a missing D_i term lands above 0.1
+# products) against the fp32 plain backward on the same inputs, upcast, with
+# the plain forward's output and log-sum-exp, per gradient, scaled by
+# max|ref|: the CPU emulation of its arithmetic (tests/test_torch_kernels.py)
+# stays under 5e-3, a dropped query or key tile or a missing D_i term lands
+# above 0.1
 ATTN_BWD_TOL = 1e-2
+# kernel A's fp32 log-sum-exp, which the backward reads, against the plain
+# one, absolute: an offset of delta scales every probability of the backward
+# by exp(-delta), so 1e-4 moves the gradients by 1e-4 of their size (1% of
+# their limit); the kernel's fp32 scores differ from the plain ones only in
+# summation order, while a missing log l or a log2/ln mix-up moves it by O(1)
+LSE_TOL = 1e-4
 # kernel C (fp32 throughout) per gradient row, scaled by max|ref| of the row
 COMPB_TOL = 1e-4
 # fp32 operations of the compositor per (pixel, instance) pair. Every pair a
@@ -207,7 +221,7 @@ def phase_attention() -> dict:
 
     from prometheus_torch.ops.attention import (FLASH_ATTN_FWD,
                                                 attention_plain,
-                                                flash_attention)
+                                                flash_attention_fwd)
 
     g = torch.Generator(device="cuda").manual_seed(1)
     rows, worst, worst_scaled = [], 0.0, 0.0
@@ -215,12 +229,12 @@ def phase_attention() -> dict:
     for shape, where in ATTN_SHAPES:
         q, k, v = (torch.randn(shape, generator=g, device="cuda",
                                dtype=torch.bfloat16) for _ in range(3))
-        out = flash_attention(q, k, v)
+        out = flash_attention_fwd(q, k, v)[0]
         torch.cuda.synchronize()
         ref = attention_plain(q.float(), k.float(), v.float())
         err = float((out.float() - ref).abs().max())
         scaled = err / float(ref.abs().max())
-        ms = cuda_time_ms(lambda: flash_attention(q, k, v))
+        ms = cuda_time_ms(lambda: flash_attention_fwd(q, k, v))
         # the plain path a bf16 model takes where the kernel does not apply
         plain_ms = cuda_time_ms(lambda: attention_plain(q, k, v), iters=3)
         qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
@@ -275,24 +289,35 @@ def synthetic_scene(n: int, views: int, size: int, seed: int):
     return cams, (xyz, colors, opac, scales, quats)
 
 
+def bin_scene(cams, scene, size: int, cap: int):
+    """Project one scene into each of its cameras and bin the views into
+    one batch of worklists, through the renderer's own projection and the
+    binning ``CompositeFunction`` runs: ``(data (V * T, 16, K), counts)``."""
+    import torch
+
+    from prometheus_torch.ops.gaussian.composite_grad import bin_views
+    from prometheus_torch.ops.gaussian.renderer import project_views
+
+    xyz, colors, opac, scales, quats = scene
+    views, n = cams.shape[0], xyz.shape[0]
+    with torch.no_grad():
+        proj = project_views(cams[None], xyz[None], scales[None],
+                             quats[None], opac[None], size, size)
+        data, _, _, counts = bin_views(proj, colors.expand(views, n, 3),
+                                       opac.expand(views, n), size, size, 16,
+                                       cap, (32, 32))
+    return data, counts
+
+
 def phase_compositor() -> dict:
     import torch
 
     from prometheus_torch.ops.gaussian.compositor import (
         COMPOSITE_FWD, composite_tiles, composite_tiles_plain_counted)
-    from prometheus_torch.ops.gaussian.renderer import bin_view
 
     size, cap, views, n = 512, 1024, 8, 524288
-    cams, (xyz, colors, opac, scales, quats) = synthetic_scene(
-        n, views, size, seed=2)
-    datas, counts = [], []
-    for i in range(views):
-        dt, c = bin_view(cams[i], xyz, colors, opac, scales, quats, size,
-                         size, tile_capacity=cap)
-        datas.append(dt)
-        counts.append(c)
-    data, counts = torch.cat(datas), torch.cat(counts)
-    del datas
+    data, counts = bin_scene(*synthetic_scene(n, views, size, seed=2), size,
+                             cap)
     grid_w, tpv = size // 16, (size // 16) ** 2
     out = composite_tiles(data, counts, grid_w, tpv)
     torch.cuda.synchronize()
@@ -337,6 +362,8 @@ def phase_attention_bwd() -> dict:
     import torch.nn.functional as F
 
     from prometheus_torch.ops.attention import (FLASH_ATTN_BWD,
+                                                attention_lse_plain,
+                                                attention_plain,
                                                 flash_attention_bwd,
                                                 flash_attention_bwd_plain,
                                                 flash_attention_fwd)
@@ -349,11 +376,17 @@ def phase_attention_bwd() -> dict:
         o, lse = flash_attention_fwd(q, k, v, with_lse=True)
         grads = flash_attention_bwd(q, k, v, o, lse, do)
         torch.cuda.synchronize()
-        ref = flash_attention_bwd_plain(q.float(), k.float(), v.float(),
-                                        o.float(), lse, do.float())
+        # the reference reads the plain forward's output and log-sum-exp, so
+        # a wrong log-sum-exp from kernel A fails here too
+        qf, kf, vf = q.float(), k.float(), v.float()
+        lse_ref = attention_lse_plain(qf, kf)
+        lse_err = float((lse - lse_ref).abs().max())
+        ref = flash_attention_bwd_plain(qf, kf, vf,
+                                        attention_plain(qf, kf, vf), lse_ref,
+                                        do.float())
         errs = [float((a.float() - r).abs().max()) for a, r in zip(grads, ref)]
         scaled = [e / float(r.abs().max()) for e, r in zip(errs, ref)]
-        del grads, ref
+        del grads, ref, qf, kf, vf, lse_ref
         ms = cuda_time_ms(lambda: flash_attention_bwd(q, k, v, o, lse, do))
         plain_ms = cuda_time_ms(
             lambda: flash_attention_bwd_plain(q, k, v, o, lse, do), iters=3)
@@ -369,8 +402,10 @@ def phase_attention_bwd() -> dict:
         # q, k, v, o, dO and lse read once and dq, dk, dv written once
         bound_ms, bound_by = bound(10.0 * b * h * t * t * d, PEAK_BF16_FLOPS,
                                    8.0 * b * t * h * d * 2 + 4.0 * b * h * t)
-        ok = max(scaled) <= ATTN_BWD_TOL and all(map(math.isfinite, scaled))
-        log(f"kernel A-bwd {shape} ({where}): max_abs_err dq/dk/dv "
+        ok = (max(scaled) <= ATTN_BWD_TOL and lse_err <= LSE_TOL
+              and all(map(math.isfinite, scaled + [lse_err])))
+        log(f"kernel A-bwd {shape} ({where}): kernel A's lse max_abs_err "
+            f"{lse_err:.3e} (tol {LSE_TOL:g}); max_abs_err dq/dk/dv "
             + "/".join(f"{e:.3e}" for e in errs) + " scaled_err "
             + "/".join(f"{e:.3e}" for e in scaled)
             + f" (tol {ATTN_BWD_TOL:g}) ms {ms:.4f} plain_ms {plain_ms:.4f} "
@@ -378,13 +413,14 @@ def phase_attention_bwd() -> dict:
             f"{'ok' if ok else 'FAIL'}")
         if not ok:
             raise RuntimeError(f"kernel A-bwd disagrees with its plain "
-                               f"version at {shape}: scaled errors {scaled}")
+                               f"version at {shape}: scaled errors {scaled}, "
+                               f"log-sum-exp error {lse_err}")
         worst = max(worst, max(errs))
         worst_scaled = max(worst_scaled, max(scaled))
         rows.append(dict(shape=list(shape), ms=ms, plain_ms=plain_ms,
                          library_ms=lib_ms, bound_ms=bound_ms,
                          bound_by=bound_by, max_abs_err=max(errs),
-                         scaled_err=max(scaled)))
+                         scaled_err=max(scaled), lse_err=lse_err))
         del q, k, v, do, o, lse, qt, kt, vt, out_t, do_t
     FLASH_ATTN_BWD.launches = 0
     head = rows[0]
@@ -400,44 +436,26 @@ def phase_attention_bwd() -> dict:
                 shape=head["shape"], shapes=rows)
 
 
-def phase_composite_bwd() -> dict:
-    import torch
-
+def check_composite_bwd(label: str, data, gout, counts, grid_w: int,
+                        tpv: int, tile_size: int = 16) -> dict:
+    """Hold kernel C against its plain version on one batch of worklists:
+    the error per gradient row scaled by its max|ref|, the times, and the
+    bound counted from the pairs this data walks and keeps."""
     from prometheus_torch.ops.gaussian.compositor import (
-        COMPOSITE_BWD, composite_tiles_bwd, composite_tiles_bwd_plain_counted)
-    from prometheus_torch.ops.gaussian.renderer import bin_view
+        composite_tiles_bwd, composite_tiles_bwd_plain_counted)
 
-    # the train step's render: 4 scenes x 4 novel views at 256^2, one
-    # launch for the 16 views; 262,144 gaussians (4 input views x 256^2)
-    size, cap, views, n = 256, 1024, 16, 262144
-    cams, (xyz, colors, opac, scales, quats) = synthetic_scene(
-        n, views, size, seed=4)
-    datas, counts = [], []
-    for i in range(views):
-        dt, c = bin_view(cams[i], xyz, colors, opac, scales, quats, size,
-                         size, tile_capacity=cap)
-        datas.append(dt)
-        counts.append(c)
-    data, counts = torch.cat(datas), torch.cat(counts)
-    del datas
-    n_t = data.shape[0]
-    g = torch.Generator(device="cuda").manual_seed(5)
-    gout = torch.randn(n_t, 8, 256, generator=g, device="cuda")
-    gout[:, 5:] = 0.0
-    grid_w, tpv = size // 16, (size // 16) ** 2
-    out = composite_tiles_bwd(data, gout, counts, grid_w, tpv)
-    torch.cuda.synchronize()
-    ref, walked, kept = composite_tiles_bwd_plain_counted(data, gout, counts,
-                                                          grid_w, tpv)
-    scales_r = ref[:, :10].abs().amax(dim=(0, 2))
+    args = (data, gout, counts, grid_w, tpv, tile_size)
+    out = composite_tiles_bwd(*args)
+    ref, walked, kept = composite_tiles_bwd_plain_counted(*args)
     errs = (out[:, :10] - ref[:, :10]).abs().amax(dim=(0, 2))
-    scaled = float((errs / scales_r).max())
+    scaled = float((errs / ref[:, :10].abs().amax(dim=(0, 2))).max())
     err = float(errs.max())
     pad_zero = float(out[:, 10:].abs().max()) == 0.0
-    ms = cuda_time_ms(lambda: composite_tiles_bwd(data, gout, counts, grid_w,
-                                                  tpv))
-    plain_ms = cuda_time_ms(lambda: composite_tiles_bwd_plain_counted(
-        data, gout, counts, grid_w, tpv), iters=1, warmup=1)
+    del out, ref
+    ms = cuda_time_ms(lambda: composite_tiles_bwd(*args))
+    plain_ms = cuda_time_ms(lambda: composite_tiles_bwd_plain_counted(*args),
+                            iters=1, warmup=0)
+    n_t, _, cap = data.shape
     pairs_walked, pairs_kept = float(walked.sum()) * 256, float(kept.sum())
     # data rows 0-9 of every walked slot and gout read once, gdata written
     nbytes = 4.0 * (10 * float(walked.sum()) + n_t * 8 * 256 + n_t
@@ -446,25 +464,43 @@ def phase_composite_bwd() -> dict:
         COMPB_OPS_WALKED * pairs_walked + COMPB_OPS_KEPT * pairs_kept,
         PEAK_FP32_FLOPS, nbytes)
     ok = scaled <= COMPB_TOL and pad_zero
-    log(f"kernel C ({n_t} tiles x K {cap}, {n} gaussians, {views} views at "
-        f"{size}^2; {int(counts.sum())} instances binned, "
-        f"{int(walked.sum())} slots walked; {pairs_walked:.0f} pixel pairs "
-        f"walked, {pairs_kept:.0f} kept ({pairs_kept / max(pairs_walked, 1):.4f})"
-        f"): max_abs_err {err:.3e} scaled_err {scaled:.3e} (tol "
-        f"{COMPB_TOL:g}) rows 10-15 zero {pad_zero} ms {ms:.4f} plain_ms "
-        f"{plain_ms:.4f} bound_ms {bound_ms:.4f} ({bound_by}) "
-        f"{'ok' if ok else 'FAIL'}")
+    log(f"kernel C ({label}; {n_t} tiles x K {cap}, {int(counts.sum())} "
+        f"instances binned, {int(walked.sum())} slots walked; "
+        f"{pairs_walked:.0f} pixel pairs walked, {pairs_kept:.0f} kept "
+        f"({pairs_kept / max(pairs_walked, 1):.4f})): max_abs_err {err:.3e} "
+        f"scaled_err {scaled:.3e} (tol {COMPB_TOL:g}); rows 10-15 zero "
+        f"{pad_zero}; ms {ms:.4f} plain_ms {plain_ms:.4f} bound_ms "
+        f"{bound_ms:.4f} ({bound_by}) {'ok' if ok else 'FAIL'}")
     if not ok:
-        raise RuntimeError(f"kernel C disagrees with its plain version: "
-                           f"scaled error {scaled} > {COMPB_TOL} or "
-                           f"nonzero pad rows")
+        raise RuntimeError(f"kernel C disagrees with its plain version "
+                           f"({label}): scaled error {scaled} > {COMPB_TOL} "
+                           f"or nonzero pad rows")
+    return dict(max_abs_err=err, scaled_err=scaled, ms=ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=bound_by, shape=[n_t, 16, cap],
+                pairs_walked=pairs_walked, pairs_kept=pairs_kept)
+
+
+def phase_composite_bwd() -> dict:
+    import torch
+
+    from prometheus_torch.ops.gaussian.compositor import COMPOSITE_BWD
+
+    # the train step's render: 4 scenes x 4 novel views at 256^2, one
+    # launch for the 16 views; 262,144 gaussians (4 input views x 256^2)
+    size, cap, views, n = 256, 1024, 16, 262144
+    data, counts = bin_scene(*synthetic_scene(n, views, size, seed=4), size,
+                             cap)
+    g = torch.Generator(device="cuda").manual_seed(5)
+    gout = torch.randn(data.shape[0], 8, 256, generator=g, device="cuda")
+    gout[:, 5:] = 0.0
+    res = check_composite_bwd(
+        f"synthetic scene, {n} gaussians, {views} views at {size}^2", data,
+        gout, counts, size // 16, (size // 16) ** 2)
     COMPOSITE_BWD.launches = 0
     return dict(name="composite_bwd", route="cuda",
                 source="prometheus_torch/csrc/composite_bwd.cu",
                 replaces="prometheus_tpu/ops/gaussian/pallas_backward.py:57",
-                max_abs_err=err, scaled_err=scaled, ms=ms, plain_ms=plain_ms,
-                bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
-                shape=[n_t, 16, cap])
+                library_ms=None, **res)
 
 
 def phase_generate(steps: int, seed: int) -> dict:
@@ -618,10 +654,55 @@ def checksums(tensors: dict) -> dict:
                 for n, t in tensors.items()}
 
 
-def run_train_steps(trainer) -> dict:
+def instrument(trainer):
+    """Watch the train step without changing what it runs or adding a
+    synchronisation: CUDA events at the end of the loss (``system.loss``),
+    at the start and end of the optimizer's step (backward and clipping
+    lie before it, the EMA after it) and around kernel C's launch, and a
+    hold on kernel C's last inputs (the worklists, upstream gradients and
+    counts ``CompositeFunction``'s backward passes it). Returns ``(marks,
+    record, captured)``."""
+    import torch
+
+    from prometheus_torch.ops.gaussian import composite_grad
+
+    marks, captured = {}, {}
+
+    def record(name: str) -> None:
+        marks[name] = torch.cuda.Event(enable_timing=True)
+        marks[name].record()
+
+    loss = trainer.system.loss
+
+    def loss_marked(*args, **kwargs):
+        out = loss(*args, **kwargs)
+        record("forward")
+        return out
+
+    trainer.system.loss = loss_marked
+    opt = trainer.state.optimizer
+    opt.register_step_pre_hook(lambda *_: record("backward"))
+    opt.register_step_post_hook(lambda *_: record("adamw"))
+    bwd = composite_grad.composite_tiles_bwd
+    bwd = getattr(bwd, "__wrapped__", bwd)     # a trainer built before
+
+    def bwd_held(*args):
+        captured["args"] = args
+        record("kernel C start")
+        out = bwd(*args)
+        record("kernel C end")
+        return out
+
+    bwd_held.__wrapped__ = bwd
+    composite_grad.composite_tiles_bwd = bwd_held
+    return marks, record, captured
+
+
+def run_train_steps(trainer, marks, record) -> dict:
     """``TRAIN_STEPS`` steps on fresh synthetic batches (made on the card
     before each step, outside its time); the launch counters are set to 0
-    just before the last (warm) step and read just after it."""
+    just before the last (warm) step and read just after it. Each step's
+    stages are device-timeline ms between the events of ``instrument``."""
     import torch
 
     model = trainer.state.model
@@ -637,12 +718,19 @@ def run_train_steps(trainer) -> dict:
         if i == TRAIN_STEPS - 1:
             zero_counts()
         t0 = time.perf_counter()
+        record("start")
         m = trainer.step(batch)
+        record("end")
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
         launches = read_counts() if i == TRAIN_STEPS - 1 else None
-        timings = m.pop("timings")
-        steps.append(dict(seconds=seconds, timings=timings,
+        stages = ("start", "forward", "backward", "adamw", "end")
+        stage_ms = {b: marks[a].elapsed_time(marks[b])
+                    for a, b in zip(stages, stages[1:])}
+        stage_ms["ema"] = stage_ms.pop("end")
+        stage_ms["kernel C (in backward)"] = marks["kernel C start"] \
+            .elapsed_time(marks["kernel C end"])
+        steps.append(dict(seconds=seconds, stage_ms=stage_ms,
                           metrics={k: float(v) for k, v in m.items()}))
     grads_finite = all(bool(torch.isfinite(p.grad).all())
                        for p in model.parameters() if p.grad is not None)
@@ -669,13 +757,14 @@ def phase_train(seed: int):
     for batch in TRAIN_BATCHES:
         t0 = time.perf_counter()
         trainer = build_gsdecoder_trainer(device="cuda", seed=seed,
-                                          batch_size=batch, timed=True)
+                                          batch_size=batch)
+        marks, record, captured = instrument(trainer)
         torch.cuda.synchronize()
         n_params = sum(p.numel() for p in trainer.state.model.parameters())
         log(f"phase build_trainer: {time.perf_counter() - t0:.1f} s, "
             f"{n_params / 1e9:.3f}B parameters (fp32), batch {batch}")
         try:
-            res = run_train_steps(trainer)
+            res = run_train_steps(trainer, marks, record)
             break
         except torch.cuda.OutOfMemoryError as e:
             log(f"train step at batch {batch} does not fit in device "
@@ -692,8 +781,8 @@ def phase_train(seed: int):
     for i, st in enumerate(res["steps"]):
         met = st["metrics"]
         log(f"train step {i} ({'cold' if i == 0 else 'warm'}): "
-            f"{st['seconds']:.3f} s; stages " + " ".join(
-                f"{k} {v * 1e3:.1f}ms" for k, v in st["timings"].items())
+            f"{st['seconds']:.3f} s; device-timeline stages " + " ".join(
+                f"{k} {v:.1f}ms" for k, v in st["stage_ms"].items())
             + "; " + " ".join(f"{k} {v:.5g}" for k, v in met.items()))
     warm = [st["seconds"] for st in res["steps"][1:]]
     log(f"train step (stage 1, batch {batch} x ({cfg['num_input_views']} in "
@@ -724,7 +813,7 @@ def phase_train(seed: int):
     (LOG_DIR / "train_steps.json").write_text(json.dumps(dict(
         batch=batch, steps=res["steps"], peak_bytes=res["peak"],
         launches=res["launches"]), indent=1))
-    return trainer, res["launches"]
+    return trainer, res["launches"], captured["args"]
 
 
 def main() -> int:
@@ -755,9 +844,14 @@ def main() -> int:
     phase_profile(pipe, kw)
     del pipe
     torch.cuda.empty_cache()
-    trainer, train_launches = phase_train(SEED)
+    trainer, train_launches, c_args = phase_train(SEED)
     profile_run("warm train step", trainer.step, "profile_train.json")
     del trainer
+    torch.cuda.empty_cache()
+    # kernel C once more, on the worklists of the last counted train step
+    entry_c["on_train_step"] = check_composite_bwd(
+        "the train step's own worklists and upstream gradients", *c_args)
+    del c_args
     for entry, launches in ((entry_a, gen_launches), (entry_b, gen_launches),
                             (entry_abwd, train_launches),
                             (entry_c, train_launches)):
@@ -771,6 +865,7 @@ def main() -> int:
             "launches_by_path")
     entries = (entry_a, entry_b, entry_abwd, entry_c)
     kernels = [{k: e[k] for k in keys} for e in entries]
+    kernels[-1]["on_train_step"] = entry_c["on_train_step"]
     (LOG_DIR / "attention_shapes.json").write_text(json.dumps(dict(
         fwd=entry_a["shapes"], bwd=entry_abwd["shapes"]), indent=1))
     print(card, flush=True)

@@ -37,6 +37,8 @@
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include "splat_alpha.cuh"
+
 namespace {
 
 constexpr int kTile = 16;
@@ -54,8 +56,8 @@ __device__ __forceinline__ float alpha_at(float (*s)[kChunk], int j,
                                           float px, float py) {
   const float dx = px - s[0][j];
   const float dy = py - s[1][j];
-  const float sigma = 0.5f * (s[2][j] * dx * dx + s[4][j] * dy * dy) + s[3][j] * dx * dy;
-  const float raw = s[8][j] * expf(-fminf(sigma, 30.f));
+  const float sigma = splat_sigma(s[2][j], s[3][j], s[4][j], dx, dy);
+  const float raw = splat_alpha_raw(s[8][j], sigma);
   return (raw >= kAlphaCutoff && sigma >= 0.f) ? fminf(raw, kMaxAlpha) : 0.f;
 }
 

@@ -29,6 +29,8 @@
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include "splat_alpha.cuh"
+
 namespace {
 
 constexpr int kTile = 16;
@@ -64,8 +66,8 @@ composite_fwd_kernel(const float* __restrict__ data, const int* __restrict__ cou
     for (int j = 0; j < n; ++j) {
       const float dx = px - s[0][j];
       const float dy = py - s[1][j];
-      const float sigma = 0.5f * (s[2][j] * dx * dx + s[4][j] * dy * dy) + s[3][j] * dx * dy;
-      const float alpha = fminf(kMaxAlpha, s[8][j] * expf(-fminf(sigma, 30.f)));
+      const float sigma = splat_sigma(s[2][j], s[3][j], s[4][j], dx, dy);
+      const float alpha = fminf(kMaxAlpha, splat_alpha_raw(s[8][j], sigma));
       if (!(alpha >= kAlphaCutoff && sigma >= 0.f)) continue;
       const float w = alpha * T;
       r += w * s[5][j];

@@ -90,8 +90,8 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return (attention_plain(q, k, v),
                 attention_lse_plain(q, k) if with_lse else None)
     if q.device.type != "cuda":
-        raise ValueError(f"flash_attention: unsupported device {q.device}")
-    _check_bf16("flash_attention", q, q=q, k=k, v=v)
+        raise ValueError(f"flash_attention_fwd: unsupported device {q.device}")
+    _check_bf16("flash_attention_fwd", q, q=q, k=k, v=v)
     B, T, H, D = q.shape
     out = torch.empty_like(q)
     lse = (torch.empty(B, H, T, device=q.device, dtype=torch.float32)
@@ -101,12 +101,6 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           B, T, H, D, D ** -0.5,
                           torch.cuda.current_stream(q.device).cuda_stream)
     return out, lse
-
-
-def flash_attention(q: torch.Tensor, k: torch.Tensor,
-                    v: torch.Tensor) -> torch.Tensor:
-    """Kernel A's output alone (no log-sum-exp, no autograd)."""
-    return flash_attention_fwd(q, k, v)[0]
 
 
 def flash_attention_bwd(q, k, v, o, lse, do):

@@ -3,15 +3,16 @@
 ``composite_pallas_diff`` and ``composite_tiled_pallas_grad``).
 
 ``CompositeFunction`` takes the projected gaussians of ``V`` views at once.
-Its forward bins every view once (csort, ``sorted_tile_segments``,
-``gather_rows``, outside autograd), composites all ``V`` views' worklists in
-one kernel B launch, and saves the worklists, their gaussian indices, the
-segment mask, the counts and the depth and alpha images. Its backward chains
-the expected-depth division, packs the upstream gradients per tile, runs
-kernel C (the plain version on CPU tensors) and sums the per-instance
-gradients onto the gaussians with ``index_add_``, the counterpart of JAX's
-``segment_sum`` (outside the Pallas kernel there too). Radii and the valid
-mask only gate binning: they get no gradient.
+Its forward bins every view once (``bin_views``: csort,
+``sorted_tile_segments``, ``gather_rows``, outside autograd), composites
+all ``V`` views' worklists in one kernel B launch, and saves the
+worklists, their gaussian indices, the segment mask, the counts and the
+depth and alpha images. Its backward chains the expected-depth division,
+packs the upstream gradients per tile, runs kernel C (the plain version on
+CPU tensors) and sums the per-instance gradients onto the gaussians with
+``index_add_``, the counterpart of JAX's ``segment_sum`` (outside the
+Pallas kernel there too). Radii and the valid mask only gate binning: they
+get no gradient.
 """
 from __future__ import annotations
 
@@ -20,6 +21,31 @@ import torch
 from .compositor import (composite_tiles_bwd, gather_rows,
                          run_compositor_kernel, sorted_tile_segments)
 from .projection import Projected, bbox_extents
+
+
+def bin_views(proj: Projected, colors: torch.Tensor, opacities: torch.Tensor,
+              img_h: int, img_w: int, tile_size: int, capacity: int,
+              max_tiles: tuple[int, int]):
+    """Bin ``V`` views' projected gaussians (leaves ``(V, N, ...)``) into
+    one batch of worklists: ``(data (V * T, 16, K), idx (V * T, K) into the
+    ``V * N`` gaussians, in_seg (V * T, K), counts (V * T,))``."""
+    V, N = proj.mean2d.shape[:2]
+    idx, in_seg, counts = [], [], []
+    for v in range(V):
+        view = Projected(*(None if f is None else f[v] for f in proj))
+        g, s, c = sorted_tile_segments(view, img_h, img_w, tile_size,
+                                       capacity, max_tiles,
+                                       opacities=opacities[v])
+        idx.append(g + v * N)
+        in_seg.append(s)
+        counts.append(c)
+    idx, in_seg, counts = (torch.cat(x) for x in (idx, in_seg, counts))
+    flat = Projected(proj.mean2d.reshape(V * N, 2),
+                     proj.conic.reshape(V * N, 3), proj.depth.reshape(V * N),
+                     None, None)
+    data = gather_rows(flat, colors.reshape(V * N, 3),
+                       opacities.reshape(V * N), idx, in_seg)
+    return data, idx, in_seg, counts
 
 
 class CompositeFunction(torch.autograd.Function):
@@ -33,22 +59,11 @@ class CompositeFunction(torch.autograd.Function):
                 img_h: int, img_w: int, tile_size: int, capacity: int,
                 max_tiles: tuple[int, int]):
         V, N = mean2d.shape[:2]
-        idx, in_seg, counts = [], [], []
-        for v in range(V):
-            proj = Projected(mean2d[v], conic[v], depth[v], radii[v, :, 0],
-                             validf[v] > 0.5, rx=radii[v, :, 1],
-                             ry=radii[v, :, 2])
-            g, s, c = sorted_tile_segments(proj, img_h, img_w, tile_size,
-                                           capacity, max_tiles,
-                                           opacities=opacities[v])
-            idx.append(g + v * N)
-            in_seg.append(s)
-            counts.append(c)
-        idx, in_seg, counts = (torch.cat(x) for x in (idx, in_seg, counts))
-        flat = Projected(mean2d.reshape(V * N, 2), conic.reshape(V * N, 3),
-                         depth.reshape(V * N), None, None)
-        data = gather_rows(flat, colors.reshape(V * N, 3),
-                           opacities.reshape(V * N), idx, in_seg)
+        proj = Projected(mean2d, conic, depth, radii[..., 0], validf > 0.5,
+                         rx=radii[..., 1], ry=radii[..., 2])
+        data, idx, in_seg, counts = bin_views(proj, colors, opacities, img_h,
+                                              img_w, tile_size, capacity,
+                                              max_tiles)
         rgb, dep, acc_a = run_compositor_kernel(data, counts, img_h, img_w,
                                                 tile_size)
         ctx.save_for_backward(data, idx, in_seg, counts, dep, acc_a)
@@ -92,19 +107,12 @@ def composite_tiled_grad(proj: Projected, colors: torch.Tensor,
                          opacities: torch.Tensor, img_h: int, img_w: int,
                          tile_size: int = 16, capacity: int = 512,
                          max_tiles: tuple[int, int] = (4, 4)):
-    """Differentiable compositing of one view (``proj`` leaves ``(N, ...)``)
-    or of ``V`` views at once (leaves ``(V, N, ...)``, one kernel launch).
-    Returns ``(rgb, expected_depth, alpha)`` with the view axis kept as
-    given."""
-    single = proj.mean2d.dim() == 2
+    """Differentiable compositing of ``V`` views at once (``proj`` leaves,
+    ``colors`` and ``opacities`` ``(V, N, ...)``; one kernel launch) ->
+    ``(rgb (V, H, W, 3), expected_depth (V, H, W), alpha (V, H, W))``."""
     rx, ry = bbox_extents(proj)
     radii = torch.stack([proj.radius, rx, ry], dim=-1)
-    args = [proj.mean2d, proj.conic, proj.depth, radii,
-            proj.valid.to(torch.float32), colors, opacities]
-    if single:
-        args = [a[None] for a in args]
-    rgb, dep, alpha = CompositeFunction.apply(
-        *args, img_h, img_w, tile_size, capacity, tuple(max_tiles))
-    if single:
-        return rgb[0], dep[0], alpha[0]
-    return rgb, dep, alpha
+    return CompositeFunction.apply(
+        proj.mean2d, proj.conic, proj.depth, radii,
+        proj.valid.to(torch.float32), colors, opacities, img_h, img_w,
+        tile_size, capacity, tuple(max_tiles))

@@ -15,7 +15,6 @@ import torch
 
 from ...utils.cameras import camera_c2w, camera_intrinsics, opengl_to_opencv
 from .composite_grad import composite_tiled_grad
-from .compositor import gather_rows, sorted_tile_segments
 from .projection import Projected, project_gaussians
 
 DEFAULT_BACKGROUND = (1.0, 1.0, 1.0)
@@ -38,14 +37,16 @@ def project_view(camera, xyz, scales, rotations, opacity, h: int, w: int,
                              opacities=opacity)
 
 
-def bin_view(camera, xyz, colors, opacity, scales, rotations, h: int, w: int,
-             tile_size: int = 16, tile_capacity: int = 1024,
-             max_tiles: tuple = (32, 32), near: float = 0.01):
-    """Project and bin one view: ``(data (T, 16, K), counts (T,))``."""
-    proj = project_view(camera, xyz, scales, rotations, opacity, h, w, near)
-    g, in_seg, counts = sorted_tile_segments(
-        proj, h, w, tile_size, tile_capacity, max_tiles, opacities=opacity)
-    return gather_rows(proj, colors, opacity, g, in_seg), counts
+def project_views(cameras, xyz, scales, rotations, opacity, h: int, w: int,
+                  near: float = 0.01) -> Projected:
+    """Project ``B`` scenes (``(B, P, ...)`` leaves, ``opacity (B, P)``)
+    into their ``N`` cameras each (``cameras (B, N, 18)``): a ``Projected``
+    with ``(B * N, P, ...)`` leaves."""
+    B, N = cameras.shape[:2]
+    projs = [project_view(cameras[b, n], xyz[b], scales[b], rotations[b],
+                          opacity[b], h, w, near)
+             for b in range(B) for n in range(N)]
+    return Projected(*(torch.stack(f) for f in zip(*projs)))
 
 
 def render_gaussians(cameras: torch.Tensor, gaussians, h: int = 256,
@@ -62,10 +63,7 @@ def render_gaussians(cameras: torch.Tensor, gaussians, h: int = 256,
     cameras = cameras.to(torch.float32)
     colors = features[:, :, 0, :]
     opac = opacity[..., 0]
-    projs = [project_view(cameras[b, n], xyz[b], scales[b], rotations[b],
-                          opac[b], h, w, near)
-             for b in range(B) for n in range(N)]
-    proj = Projected(*(torch.stack(f) for f in zip(*projs)))
+    proj = project_views(cameras, xyz, scales, rotations, opac, h, w, near)
     rgb, depth, alpha = composite_tiled_grad(
         proj, colors[:, None].expand(B, N, P, 3).reshape(B * N, P, 3),
         opac[:, None].expand(B, N, P).reshape(B * N, P), h, w, tile_size,

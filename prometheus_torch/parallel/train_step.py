@@ -15,7 +15,6 @@ and is updated in place by the loss, micro-batch after micro-batch.
 from __future__ import annotations
 
 import dataclasses
-import time
 from typing import Callable
 
 import torch
@@ -67,35 +66,21 @@ def _micro_batches(batch: dict, n: int):
 
 def make_train_step(loss_fn: Callable, opt: torch.optim.Optimizer,
                     ema_decay: float = 0.9999, grad_accum: int = 1,
-                    grad_clip: float = 1.0, timed: bool = False) -> Callable:
+                    grad_clip: float = 1.0) -> Callable:
     """``loss_fn(batch) -> (loss, metrics)`` on the module the optimizer
     holds. Returns ``train_step(state, batch) -> metrics``, which updates
     ``state`` in place; with ``grad_accum > 1`` the batch's leading axis
     splits into that many micro-batches, gradients are averaged and the
-    metrics are the last micro-batch's. With ``timed`` the metrics also hold
-    ``timings``: host seconds of the forward, backward and update stages,
-    the card synchronised at each boundary."""
+    metrics are the last micro-batch's."""
 
     def train_step(state: TrainState, batch: dict) -> dict:
         params = [p for group in opt.param_groups for p in group["params"]]
-        timings, t0 = {}, [time.perf_counter()]
-
-        def mark(stage):
-            if timed:
-                if params[0].is_cuda:
-                    torch.cuda.synchronize(params[0].device)
-                now = time.perf_counter()
-                timings[stage] = timings.get(stage, 0.0) + now - t0[0]
-                t0[0] = now
-
         for p in params:
             p.grad = None
         total = 0.0
         for mb in _micro_batches(batch, grad_accum):
             loss, metrics = loss_fn(mb)
-            mark("forward")
             (loss / grad_accum).backward()
-            mark("backward")
             total = total + loss.detach()
         for p in params:
             if p.grad is None:            # frozen: zero gradient, still decayed
@@ -112,12 +97,9 @@ def make_train_step(loss_fn: Callable, opt: torch.optim.Optimizer,
                 state.ema_params[name].mul_(ema_decay).add_(
                     p, alpha=1.0 - ema_decay)
         state.step += 1
-        mark("update")
         metrics = dict(metrics)
         metrics["loss"] = total / grad_accum
         metrics["grad_norm"] = norm
-        if timed:
-            metrics["timings"] = timings
         return metrics
 
     return train_step

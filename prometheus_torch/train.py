@@ -98,11 +98,10 @@ class GSDecoderTrainer:
 
 def build_gsdecoder_trainer(small: bool = False,
                             device: str | torch.device = "cuda",
-                            seed: int = 0, batch_size: int | None = None,
-                            timed: bool = False) -> GSDecoderTrainer:
+                            seed: int = 0, batch_size: int | None = None
+                            ) -> GSDecoderTrainer:
     """The stage-1 run at flagship (or ``small``) widths with seeded random
-    weights on ``device``; bf16-mixed on a card, fp32 on the CPU. ``timed``
-    adds stage seconds to each step's metrics (``make_train_step``)."""
+    weights on ``device``; bf16-mixed on a card, fp32 on the CPU."""
     device = resolve_device(device)
     cfg = SMALL_GSDECODER_TRAIN if small else GSDECODER_TRAIN
     with torch.device("meta"):
@@ -125,7 +124,7 @@ def build_gsdecoder_trainer(small: bool = False,
 
     step = make_train_step(loss_fn, opt, ema_decay=cfg["ema_decay"],
                            grad_accum=cfg["accumulate_grad_batches"],
-                           grad_clip=cfg["grad_clip"], timed=timed)
+                           grad_clip=cfg["grad_clip"])
     return GSDecoderTrainer(system, init_train_state(model, opt), step, cfg,
                             batch_size or cfg["batch_size"], g)
 

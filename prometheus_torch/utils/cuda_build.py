@@ -51,8 +51,10 @@ class CudaKernel:
         self._fn = None
 
     def library_path(self) -> Path:
-        digest = hashlib.sha256(self.source.read_bytes()).hexdigest()[:16]
-        return BUILD_DIR / f"{self.source.stem}-{digest}.so"
+        digest = hashlib.sha256(self.source.read_bytes())
+        for header in sorted(CSRC_DIR.glob("*.cuh")):   # what sources include
+            digest.update(header.read_bytes())
+        return BUILD_DIR / f"{self.source.stem}-{digest.hexdigest()[:16]}.so"
 
     def _load(self):
         path = self.library_path()

@@ -110,11 +110,13 @@ def test_composite_function_matches_pallas_vjp(rng):
     ref = jax.grad(loss_jax, argnums=tuple(range(5)))(*args)
 
     leaves = [torch.tensor(np.asarray(a)).requires_grad_() for a in args]
-    tp = Projected(leaves[0], leaves[1], leaves[2],
-                   torch.tensor(np.asarray(proj.radius)),
-                   torch.tensor(np.asarray(proj.valid)))
-    rgb, dep, a = composite_tiled_grad(tp, leaves[3], leaves[4], h, w,
-                                       tile_size=16, capacity=128)
+    # one view: leaves (1, N, ...)
+    tp = Projected(leaves[0][None], leaves[1][None], leaves[2][None],
+                   torch.tensor(np.asarray(proj.radius))[None],
+                   torch.tensor(np.asarray(proj.valid))[None])
+    rgb, dep, a = (x[0] for x in composite_tiled_grad(
+        tp, leaves[3][None], leaves[4][None], h, w, tile_size=16,
+        capacity=128))
     loss = (rgb * torch.from_numpy(g_rgb)).sum() \
         + (dep * torch.from_numpy(g_dep) * (a > 1e-6)).sum() \
         + (a * torch.from_numpy(g_a)).sum()
@@ -140,7 +142,8 @@ def test_composite_function_finite_differences():
     def loss(op):
         proj = project_gaussians(xyz, scales, quats, torch.eye(4), 15.0, 15.0,
                                  8.0, 8.0, h, w)
-        rgb, _, _ = composite_tiled_grad(proj, colors, op, h, w,
+        view = Projected(*(None if f is None else f[None] for f in proj))
+        rgb, _, _ = composite_tiled_grad(view, colors[None], op[None], h, w,
                                          tile_size=16, capacity=128)
         return (rgb ** 2).sum()
 

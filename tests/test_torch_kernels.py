@@ -16,9 +16,15 @@ kernel's bf16 rounding of probabilities and output accounts for ~2.5e-3 of
 it, a dropped K/V tile for ~0.4. Kernel B (fp32 throughout, the same
 stopping rule) ``atol 1e-4`` on composited RGB and alpha. A-bwd (bf16 in
 and out, P and dS rounded to bf16 for the tensor-core products) against the
-fp32 plain backward on the same inputs, upcast, ``max|out - ref| / max|ref|
-<= 1e-2`` per gradient: an emulation of its arithmetic stays under 5e-3,
-a dropped query or key tile or a missing ``D_i`` term lands above 0.1.
+fp32 plain backward on the same inputs, upcast, with the plain forward's
+output and log-sum-exp, ``max|out - ref| / max|ref| <= 1e-2`` per gradient:
+an emulation of its arithmetic stays under 5e-3, a dropped query or key
+tile or a missing ``D_i`` term lands above 0.1. Kernel A's log-sum-exp (fp32)
+``atol 1e-4`` against the plain one: an offset of ``delta`` scales every
+probability of the backward by ``exp(-delta)``, so 1e-4 moves the gradients
+by 1e-4 of their size, 1% of their limit; the kernel's fp32 scores differ
+from the plain ones only in summation order, while a missing ``log l`` or
+a log2/ln mix-up moves it by O(1).
 Kernel C (fp32 throughout) ``max|out - ref| / max|ref| <= 1e-4`` per
 gradient row.
 """
@@ -29,7 +35,8 @@ import pytest
 import torch
 
 from prometheus_torch.ops.attention import (FLASH_ATTN_BWD, FLASH_ATTN_FWD,
-                                            attention_plain, flash_attention,
+                                            attention_lse_plain,
+                                            attention_plain,
                                             flash_attention_bwd,
                                             flash_attention_bwd_plain,
                                             flash_attention_fwd,
@@ -68,7 +75,7 @@ def test_flash_wrapper_on_cpu_is_the_plain_version(rng):
     q, k, v = (torch.from_numpy(rng.normal(size=(1, 512, 2, 64))
                                 .astype(np.float32)) for _ in range(3))
     before = FLASH_ATTN_FWD.launches
-    torch.testing.assert_close(flash_attention(q, k, v),
+    torch.testing.assert_close(flash_attention_fwd(q, k, v)[0],
                                attention_plain(q, k, v), rtol=0, atol=0)
     torch.testing.assert_close(scaled_dot_product_attention(q, k, v),
                                attention_plain(q, k, v), rtol=0, atol=0)
@@ -80,7 +87,7 @@ def test_flash_condition():
     # only CUDA tensors take the kernel; other devices raise in the wrapper
     assert not use_flash(meta(512), meta(512))
     with pytest.raises(ValueError):
-        flash_attention(meta(512), meta(512), meta(512))
+        flash_attention_fwd(meta(512), meta(512), meta(512))
 
 
 def test_composite_wrapper_on_cpu_is_the_plain_version(rng):
@@ -171,7 +178,7 @@ def test_flash_kernel_matches_plain_on_card(shape):
                            dtype=torch.bfloat16) for _ in range(3))
     assert use_flash(q, k)
     before = FLASH_ATTN_FWD.launches
-    out = flash_attention(q, k, v)
+    out = flash_attention_fwd(q, k, v)[0]
     torch.cuda.synchronize()
     assert FLASH_ATTN_FWD.launches == before + 1
     ref = attention_plain(q.float(), k.float(), v.float())
@@ -271,17 +278,18 @@ def emulate_flash_bwd(q, k, v, do, block=64, drop_tile=None,
                       drop_delta=False):
     """A-bwd's arithmetic on the CPU, ``(H, T, D)`` bf16 -> errors of
     ``(dq, dk, dv)`` scaled by max|ref| against the fp32 backward on the
-    same inputs. P and dS are rounded to bf16 before their products and the
-    gradients to bf16 at the end. ``drop_tile`` (one query tile left out of
-    dK and dV, one key tile out of dQ) and ``drop_delta`` are the faults
-    the tolerance must catch."""
+    same inputs and the fp32 forward output. The kernel reads its forward's
+    bf16 output for ``D_i``; P and dS are rounded to bf16 before their
+    products and the gradients to bf16 at the end. ``drop_tile`` (one query
+    tile left out of dK and dV, one key tile out of dQ) and ``drop_delta``
+    are the faults the tolerance must catch."""
     scale = q.shape[-1] ** -0.5
     s = q.float() @ k.float().transpose(1, 2) * scale
     p = torch.exp(s - torch.logsumexp(s, -1, keepdim=True))
-    o = (p @ v.float()).bfloat16().float()
-    delta = (do.float() * o).sum(-1, keepdim=True)
+    o = p @ v.float()
     dp = do.float() @ v.float().transpose(1, 2)
-    ref_ds = p * (dp - delta)
+    ref_ds = p * (dp - (do.float() * o).sum(-1, keepdim=True))
+    delta = (do.float() * o.bfloat16().float()).sum(-1, keepdim=True)
     ref = (ref_ds @ k.float() * scale,
            ref_ds.transpose(1, 2) @ q.float() * scale,
            p.transpose(1, 2) @ do.float())
@@ -320,8 +328,14 @@ def test_flash_bwd_kernel_matches_plain_on_card(shape):
     grads = flash_attention_bwd(q, k, v, o, lse, do)
     torch.cuda.synchronize()
     assert FLASH_ATTN_BWD.launches == before + 1
-    ref = flash_attention_bwd_plain(q.float(), k.float(), v.float(),
-                                    o.float(), lse, do.float())
+    # the reference reads the plain forward's output and log-sum-exp, so a
+    # wrong log-sum-exp from kernel A fails here too
+    qf, kf, vf = q.float(), k.float(), v.float()
+    lse_ref = attention_lse_plain(qf, kf)
+    assert lse.shape == lse_ref.shape
+    assert float((lse - lse_ref).abs().max()) <= 1e-4
+    ref = flash_attention_bwd_plain(qf, kf, vf, attention_plain(qf, kf, vf),
+                                    lse_ref, do.float())
     for a, r in zip(grads, ref):
         assert a.dtype == torch.bfloat16 and a.shape == shape
         assert float((a.float() - r).abs().max()) / float(r.abs().max()) \
