@@ -9,10 +9,13 @@ Phases (any failure ends the script with a non-zero exit):
 
 1. the card's name and power limit, as ``nvidia-smi`` reports them;
 2. build the four kernels: A (flash attention forward), A-bwd (its
-   backward), B (tile compositing) and C (the compositing gradient);
+   backward), B (tile compositing) and C (the compositing gradient), and
+   print each compiled kernel's registers and spills as ``ptxas`` reports
+   them;
 3. hold each kernel against its plain PyTorch version at the shapes the main
    paths give it, TF32 off: kernel A at every attention shape of flagship
-   ``generate``; kernel B on a synthetic 524,288-gaussian scene rendered
+   ``generate`` and the train step's DiT forward; kernel B on a synthetic
+   524,288-gaussian scene rendered
    into 8 views at 512x512 with tile capacity 1024; A-bwd at the two
    attention shapes the stage-1 train step differentiates, with kernel A's
    log-sum-exp held against the plain one; kernel C on a 262,144-gaussian
@@ -21,7 +24,8 @@ Phases (any failure ends the script with a non-zero exit):
    tolerance, the kernel's time, the plain version's time, the bound and,
    for A and A-bwd, the time of ``torch.nn.functional.scaled_dot_product_
    attention`` forward or backward (a yardstick only; the port never calls
-   it);
+   it), with TFLOP/s and the share of the bound beside each; A's, A-bwd's
+   and the yardsticks' times are medians of 5 readings;
 4. build the flagship-width pipeline (SD-2.1 U-Net, CLIP ViT-H text tower,
    GS decoder with its cross-view DiT; random bf16 weights from a seed) and
    run ``generate`` with given cameras: 8 views, image 256, render 512, and
@@ -30,7 +34,8 @@ Phases (any failure ends the script with a non-zero exit):
    just before ``generate`` and read just after), and check that A and B
    ran and every output is finite and of the expected shape;
 6. profile one more (warm) ``generate`` with ``torch.profiler``: device time
-   by kernel class and the device's idle share;
+   by kernel class, the device's idle share, and kernels A and A-bwd by
+   launched kernel (A-bwd's D_i pre-pass, main kernel and dQ conversion);
 7. build the flagship stage-1 trainer (``prometheus_torch.train``: GS
    decoder at full width, bf16-mixed, AdamW, EMA; random weights from a
    seed) and run 3 train steps on synthetic batches of 4 scenes x (4 input
@@ -59,6 +64,9 @@ from __future__ import annotations
 
 import json
 import math
+import re
+import shutil
+import statistics
 import subprocess
 import sys
 import time
@@ -83,6 +91,8 @@ ATTN_SHAPES = [
     ((16, 1024, 1, 512), "MV-LDM VAE mid block (rgb + depth latents)"),
     ((8, 1024, 1, 512), "GS-decoder VAE mid block"),
     ((1, 2048, 16, 72), "GS-decoder cross-view DiT"),
+    ((4, 1024, 16, 72), "GS-decoder cross-view DiT, stage-1 train step "
+                        "forward (4 scenes)"),
 ]
 ATTN_HEADLINE = (2, 2048, 10, 64)
 # Kernel A (bf16 in and out, fp32 softmax and accumulation) is held against
@@ -132,6 +142,9 @@ PROMPT = "a cozy wooden cabin in a snowy forest"
 # Euler steps of the flagship generate (the reference samples 50; 4 keep the
 # run short) and the seed of the random weights, cameras and noise
 STEPS, SEED = 4, 0
+# repeats of ``cuda_time_ms`` whose median is each kernel's and each
+# yardstick's time: SDPA's backward read 0.206-0.556 ms over single readings
+REPEATS = 5
 # train steps of the stage-1 phase (one cold, two warm) and the batch sizes
 # tried in turn (the configuration's 4, cut only if it does not fit)
 TRAIN_STEPS, TRAIN_BATCHES = 3, (4, 2, 1)
@@ -166,6 +179,17 @@ def cuda_time_ms(fn, iters: int = 10, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
+def median_ms(fn, repeats: int = REPEATS, **kw) -> float:
+    """Median of ``repeats`` readings of ``cuda_time_ms(fn, **kw)``."""
+    return statistics.median(cuda_time_ms(fn, **kw) for _ in range(repeats))
+
+
+def rate_note(flops: float, ms: float, bound_ms: float) -> str:
+    """Achieved TFLOP/s and the share of the bound, for a log line."""
+    return (f"{flops / (ms * 1e-3) / 1e12:.1f} TFLOP/s, "
+            f"{bound_ms / ms:.3f} of bound")
+
+
 def all_kernels():
     from prometheus_torch.ops.attention import FLASH_ATTN_BWD, FLASH_ATTN_FWD
     from prometheus_torch.ops.gaussian.compositor import (COMPOSITE_BWD,
@@ -193,11 +217,47 @@ def phase_build():
     LOG_DIR.mkdir(parents=True, exist_ok=True)
     for k in kernels:
         (LOG_DIR / f"{k.source.stem}.nvcc.log").write_text(k.build_log)
-        regs = [ln.strip() for ln in k.build_log.splitlines()
-                if "registers" in ln or "spill" in ln]
-        log(f"built {k.source.name} in {k.build_seconds:.1f} s; "
-            + " | ".join(regs[-4:]))
+        log(f"built {k.source.name} in {k.build_seconds:.1f} s")
+        for line in ptxas_report(k.build_log):
+            log("  " + line)
     log(f"phase build: {time.perf_counter() - t0:.1f} s")
+
+
+def ptxas_report(build_log: str) -> list:
+    """One line per kernel of an ``nvcc -Xptxas -v`` log: its registers
+    and spills (a spill is a finding), and every warning and note of a
+    potential performance loss (``wgmma`` serialised, for one)."""
+    names, lines, name, spill = [], [], None, ""
+    for ln in build_log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", ln)
+        if m:
+            name = m.group(1)
+        elif "spill" in ln:
+            spill = ln.strip()
+        elif name and "Used" in ln and "registers" in ln:
+            names.append(name)
+            lines.append(f"{ln.split('Used', 1)[1].split(',')[0].strip()}; "
+                         f"{spill}")
+            name = None
+        elif "warning" in ln.lower() or "Performance Loss" in ln:
+            lines.append(ln.strip())
+            names.append(None)
+    demangled = dict(zip(names, names))
+    filt = shutil.which("c++filt")
+    mangled = [n for n in names if n]
+    if filt and mangled:
+        out = subprocess.run([filt], input="\n".join(mangled),
+                             capture_output=True, text=True).stdout
+        demangled.update(zip(mangled, out.splitlines()))
+    return [line if n is None else f"{short_name(demangled[n])}: {line}"
+            for n, line in zip(names, lines)]
+
+
+def short_name(kernel: str) -> str:
+    """A demangled kernel name without its return type, namespace and
+    arguments: ``flash_fwd_kernel<80, 128, 128, 2, false>``."""
+    kernel = kernel.replace("(anonymous namespace)::", "")
+    return re.sub(r"[(].*$", "", re.sub(r"^void ", "", kernel))
 
 
 def bound(ops: float, ops_peak: float, nbytes: float):
@@ -234,19 +294,21 @@ def phase_attention() -> dict:
         ref = attention_plain(q.float(), k.float(), v.float())
         err = float((out.float() - ref).abs().max())
         scaled = err / float(ref.abs().max())
-        ms = cuda_time_ms(lambda: flash_attention_fwd(q, k, v))
+        ms = median_ms(lambda: flash_attention_fwd(q, k, v))
         # the plain path a bf16 model takes where the kernel does not apply
         plain_ms = cuda_time_ms(lambda: attention_plain(q, k, v), iters=3)
         qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
-        lib_ms = cuda_time_ms(
-            lambda: F.scaled_dot_product_attention(qt, kt, vt), iters=10)
+        lib_ms = median_ms(
+            lambda: F.scaled_dot_product_attention(qt, kt, vt))
         bound_ms, bound_by = attention_bound(shape)
+        flops = 4.0 * math.prod(shape) * shape[1]
         ok = scaled <= ATTN_TOL and math.isfinite(scaled)
         log(f"kernel A {shape} ({where}): max_abs_err {err:.3e} max|ref| "
             f"{float(ref.abs().max()):.3e} scaled_err {scaled:.3e} "
-            f"(tol {ATTN_TOL:g}) ms {ms:.4f} plain_ms {plain_ms:.4f} "
-            f"sdpa_ms {lib_ms:.4f} bound_ms {bound_ms:.4f} ({bound_by}) "
-            f"{'ok' if ok else 'FAIL'}")
+            f"(tol {ATTN_TOL:g}) ms {ms:.4f} ({rate_note(flops, ms, bound_ms)})"
+            f" plain_ms {plain_ms:.4f} sdpa_ms {lib_ms:.4f} "
+            f"({rate_note(flops, lib_ms, bound_ms)}) bound_ms {bound_ms:.4f} "
+            f"({bound_by}) {'ok' if ok else 'FAIL'}")
         if not ok:
             raise RuntimeError(f"kernel A disagrees with its plain version "
                                f"at {shape}: scaled error {scaled} > "
@@ -254,7 +316,8 @@ def phase_attention() -> dict:
         worst, worst_scaled = max(worst, err), max(worst_scaled, scaled)
         row = dict(shape=list(shape), ms=ms, plain_ms=plain_ms,
                    library_ms=lib_ms, bound_ms=bound_ms, bound_by=bound_by,
-                   max_abs_err=err, scaled_err=scaled)
+                   tflops=flops / (ms * 1e-3) / 1e12, max_abs_err=err,
+                   scaled_err=scaled)
         rows.append(row)
         if shape == ATTN_HEADLINE:
             head = row
@@ -387,7 +450,7 @@ def phase_attention_bwd() -> dict:
         errs = [float((a.float() - r).abs().max()) for a, r in zip(grads, ref)]
         scaled = [e / float(r.abs().max()) for e, r in zip(errs, ref)]
         del grads, ref, qf, kf, vf, lse_ref
-        ms = cuda_time_ms(lambda: flash_attention_bwd(q, k, v, o, lse, do))
+        ms = median_ms(lambda: flash_attention_bwd(q, k, v, o, lse, do))
         plain_ms = cuda_time_ms(
             lambda: flash_attention_bwd_plain(q, k, v, o, lse, do), iters=3)
         # yardstick: autograd backward through the library attention
@@ -395,12 +458,13 @@ def phase_attention_bwd() -> dict:
                       for x in (q, k, v))
         out_t = F.scaled_dot_product_attention(qt, kt, vt)
         do_t = do.transpose(1, 2).contiguous()
-        lib_ms = cuda_time_ms(lambda: torch.autograd.grad(
-            out_t, (qt, kt, vt), do_t, retain_graph=True), iters=10)
+        lib_ms = median_ms(lambda: torch.autograd.grad(
+            out_t, (qt, kt, vt), do_t, retain_graph=True))
         b, t, h, d = shape
         # recompute S, then dV, dP, dQ, dK: 10 B H T^2 D operations on
         # q, k, v, o, dO and lse read once and dq, dk, dv written once
-        bound_ms, bound_by = bound(10.0 * b * h * t * t * d, PEAK_BF16_FLOPS,
+        flops = 10.0 * b * h * t * t * d
+        bound_ms, bound_by = bound(flops, PEAK_BF16_FLOPS,
                                    8.0 * b * t * h * d * 2 + 4.0 * b * h * t)
         ok = (max(scaled) <= ATTN_BWD_TOL and lse_err <= LSE_TOL
               and all(map(math.isfinite, scaled + [lse_err])))
@@ -408,9 +472,10 @@ def phase_attention_bwd() -> dict:
             f"{lse_err:.3e} (tol {LSE_TOL:g}); max_abs_err dq/dk/dv "
             + "/".join(f"{e:.3e}" for e in errs) + " scaled_err "
             + "/".join(f"{e:.3e}" for e in scaled)
-            + f" (tol {ATTN_BWD_TOL:g}) ms {ms:.4f} plain_ms {plain_ms:.4f} "
-            f"sdpa_bwd_ms {lib_ms:.4f} bound_ms {bound_ms:.4f} ({bound_by}) "
-            f"{'ok' if ok else 'FAIL'}")
+            + f" (tol {ATTN_BWD_TOL:g}) ms {ms:.4f} "
+            f"({rate_note(flops, ms, bound_ms)}) plain_ms {plain_ms:.4f} "
+            f"sdpa_bwd_ms {lib_ms:.4f} ({rate_note(flops, lib_ms, bound_ms)})"
+            f" bound_ms {bound_ms:.4f} ({bound_by}) {'ok' if ok else 'FAIL'}")
         if not ok:
             raise RuntimeError(f"kernel A-bwd disagrees with its plain "
                                f"version at {shape}: scaled errors {scaled}, "
@@ -419,7 +484,8 @@ def phase_attention_bwd() -> dict:
         worst_scaled = max(worst_scaled, max(scaled))
         rows.append(dict(shape=list(shape), ms=ms, plain_ms=plain_ms,
                          library_ms=lib_ms, bound_ms=bound_ms,
-                         bound_by=bound_by, max_abs_err=max(errs),
+                         bound_by=bound_by, tflops=flops / (ms * 1e-3) / 1e12,
+                         max_abs_err=max(errs),
                          scaled_err=max(scaled), lse_err=lse_err))
         del q, k, v, do, o, lse, qt, kt, vt, out_t, do_t
     FLASH_ATTN_BWD.launches = 0
@@ -630,6 +696,13 @@ def profile_run(label: str, fn, log_name: str):
                  count=e.count) for e in top]
     for r in rows[:10]:
         log(f"  {r['ms']:8.2f} ms x{r['count']:<5d} {r['kernel'][:90]}")
+    # kernels A and A-bwd by launched kernel (A-bwd's D_i pre-pass, main
+    # kernel and dQ conversion, or its D = 512 kernels), with ms a launch
+    for r in rows:
+        if kernel_class(r["kernel"]).startswith("flash_attn"):
+            log(f"  attention {short_name(r['kernel'])}: {r['ms']:.3f} ms "
+                f"x{r['count']} "
+                f"({r['ms'] / r['count']:.4f} ms a launch)")
     (LOG_DIR / log_name).write_text(json.dumps(dict(
         wall_ms=wall_ms, busy_ms=busy_ms, by_class_ms=by_class,
         kernels=rows), indent=1))

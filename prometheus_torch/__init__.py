@@ -20,7 +20,10 @@ kernel of the JAX package is hand-written CUDA under ``csrc/``:
   ``ops.gaussian.compositor.composite_tiles_bwd``; ``ops.gaussian.
   composite_grad.CompositeFunction`` for autograd).
 
-Kernels build with ``nvcc`` at first use into ``build/prometheus_torch/``.
+Kernels A and A-bwd share ``csrc/hopper.cuh`` (TMA, ``mbarrier``,
+``wgmma`` and ``setmaxnreg`` helpers in inline PTX, and the host-side
+tensor-map encoder). Kernels build with ``nvcc`` at first use into
+``build/prometheus_torch/``.
 Entry points default to ``device="cuda"`` and raise when no card is present
 unless the caller passes ``device="cpu"``; on CPU tensors every kernel
 wrapper runs its plain PyTorch version.

@@ -27,7 +27,7 @@ FLASH_ATTN_FWD = CudaKernel(
     + [ctypes.c_float, ctypes.c_void_p])
 FLASH_ATTN_BWD = CudaKernel(
     "flash_attn_bwd.cu", "flash_attn_bwd",
-    [ctypes.c_void_p] * 10 + [ctypes.c_int] * 4
+    [ctypes.c_void_p] * 11 + [ctypes.c_int] * 4
     + [ctypes.c_float, ctypes.c_void_p])
 
 
@@ -72,7 +72,7 @@ def _check_bf16(fn: str, ref: torch.Tensor, **tensors) -> None:
         if x.shape != ref.shape or not x.is_contiguous() or x.data_ptr() % 16:
             raise ValueError(f"{fn}: {name} must be a contiguous, 16-byte "
                              f"aligned tensor of shape {tuple(ref.shape)}")
-    if T % 64 or not ((D <= 80 and D % 8 == 0) or D == 512):
+    if T % 128 or not ((D <= 80 and D % 8 == 0) or D == 512):
         raise ValueError(f"{fn}: unsupported shape {tuple(ref.shape)}")
 
 
@@ -83,7 +83,7 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     Returns ``(out, lse)``: ``lse`` is the fp32 ``(B, H, T)`` log-sum-exp
     the backward needs, or None without ``with_lse``. The kernel takes
     contiguous bf16 ``(B, T, H, D)`` tensors of one shape with
-    ``T % 64 == 0`` and a head dim the path gives it: ``D <= 80`` with
+    ``T % 128 == 0`` and a head dim the path gives it: ``D <= 80`` with
     ``D % 8 == 0`` (64 and 72 on the path), or ``D == 512``.
     """
     if q.device.type == "cpu":
@@ -118,10 +118,16 @@ def flash_attention_bwd(q, k, v, o, lse, do):
         raise ValueError("flash_attention_bwd: lse must be a contiguous "
                          f"({B}, {H}, {T}) float32 tensor on {q.device}")
     delta = torch.empty_like(lse)
+    # D <= 80: the fp32 (B, H, T, D) sum that every key tile adds its dQ
+    # part into; D = 512 computes dQ in a kernel of its own
+    dq_acc = (torch.zeros(B, H, T, D, device=q.device, dtype=torch.float32)
+              if D <= 80 else None)
     dq, dk, dv = (torch.empty_like(q) for _ in range(3))
     FLASH_ATTN_BWD.launch(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                           o.data_ptr(), lse.data_ptr(), do.data_ptr(),
-                          delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+                          delta.data_ptr(),
+                          0 if dq_acc is None else dq_acc.data_ptr(),
+                          dq.data_ptr(), dk.data_ptr(),
                           dv.data_ptr(), B, T, H, D, D ** -0.5,
                           torch.cuda.current_stream(q.device).cuda_stream)
     return dq, dk, dv
