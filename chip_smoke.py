@@ -17,15 +17,16 @@ Phases (any failure ends the script with a non-zero exit):
    ``generate`` and the train step's DiT forward; kernel B on a synthetic
    524,288-gaussian scene rendered
    into 8 views at 512x512 with tile capacity 1024; A-bwd at the two
-   attention shapes the stage-1 train step differentiates, with kernel A's
-   log-sum-exp held against the plain one; kernel C on a 262,144-gaussian
+   attention shapes the stage-1 train step differentiates and at the GS
+   decoder's VAE mid block for 8 latents, with kernel A's log-sum-exp held
+   against the plain one; kernel C on a 262,144-gaussian
    scene in the train step's 16 views at 256x256 with random upstream
    gradients. Prints the error against the stated
    tolerance, the kernel's time, the plain version's time, the bound and,
    for A and A-bwd, the time of ``torch.nn.functional.scaled_dot_product_
    attention`` forward or backward (a yardstick only; the port never calls
-   it), with TFLOP/s and the share of the bound beside each; A's, A-bwd's
-   and the yardsticks' times are medians of 5 readings;
+   it), with TFLOP/s and the share of the bound beside each; every kernel's
+   and yardstick's time is a median of 5 readings;
 4. build the flagship-width pipeline (SD-2.1 U-Net, CLIP ViT-H text tower,
    GS decoder with its cross-view DiT; random bf16 weights from a seed) and
    run ``generate`` with given cameras: 8 views, image 256, render 512, and
@@ -34,8 +35,9 @@ Phases (any failure ends the script with a non-zero exit):
    just before ``generate`` and read just after), and check that A and B
    ran and every output is finite and of the expected shape;
 6. profile one more (warm) ``generate`` with ``torch.profiler``: device time
-   by kernel class, the device's idle share, and kernels A and A-bwd by
-   launched kernel (A-bwd's D_i pre-pass, main kernel and dQ conversion);
+   by kernel class, the device's idle share, and the port's kernels by
+   launched kernel (A-bwd's D_i pre-pass, main kernel and dQ conversion at
+   D <= 80, its scores and grads kernels at D = 512; C);
 7. build the flagship stage-1 trainer (``prometheus_torch.train``: GS
    decoder at full width, bf16-mixed, AdamW, EMA; random weights from a
    seed) and run 3 train steps on synthetic batches of 4 scenes x (4 input
@@ -47,8 +49,10 @@ Phases (any failure ends the script with a non-zero exit):
    warm step (set to 0 just before it, read just after; A, A-bwd, B and C
    must each be > 0), and checks that loss and gradients are finite and
    that the parameters and the EMANorm magnitudes moved;
-8. profile one more warm train step: device time by kernel class and the
-   idle share;
+8. profile one more warm train step: device time by kernel class, the
+   idle share, the port's kernels by launched kernel, and kernel C's time
+   in that step both ways: by the profiler and by CUDA events around its
+   launch;
 9. hold kernel C against its plain version once more on the worklists and
    upstream gradients of the last counted train step, with its bound
    counted from the pairs they walk and keep;
@@ -108,9 +112,12 @@ ATTN_TOL = 1e-2
 COMP_TOL = 1e-4
 # A-bwd's shapes on the flagship train step, (B, T, H, D): the DiT's joint
 # attention over 4 scenes x 4 input views of 16x16 tokens, and the GS
-# decoder's VAE mid block over 16 latents of 32x32
+# decoder's VAE mid block over 16 latents of 32x32; then the same block at
+# generate's 8 latents (differentiated by no path yet: timed, not counted)
 ATTN_BWD_SHAPES = [((4, 1024, 16, 72), "GS-decoder cross-view DiT"),
-                   ((16, 1024, 1, 512), "GS-decoder VAE mid block")]
+                   ((16, 1024, 1, 512), "GS-decoder VAE mid block"),
+                   ((8, 1024, 1, 512), "GS-decoder VAE mid block, 8 "
+                                       "latents")]
 # A-bwd (bf16 in and out; P and dS rounded to bf16 for the tensor-core
 # products) against the fp32 plain backward on the same inputs, upcast, with
 # the plain forward's output and log-sum-exp, per gradient, scaled by
@@ -390,7 +397,7 @@ def phase_compositor() -> dict:
     err = float((out[:, rows] - ref[:, rows]).abs().max())
     depth_scale = float(ref[:, 3].abs().max().clamp_min(1.0))
     err_d = float((out[:, 3] - ref[:, 3]).abs().max()) / depth_scale
-    ms = cuda_time_ms(lambda: composite_tiles(data, counts, grid_w, tpv))
+    ms = median_ms(lambda: composite_tiles(data, counts, grid_w, tpv))
     plain_ms = cuda_time_ms(
         lambda: composite_tiles_plain_counted(data, counts, grid_w, tpv),
         iters=2, warmup=1)
@@ -505,8 +512,11 @@ def phase_attention_bwd() -> dict:
 def check_composite_bwd(label: str, data, gout, counts, grid_w: int,
                         tpv: int, tile_size: int = 16) -> dict:
     """Hold kernel C against its plain version on one batch of worklists:
-    the error per gradient row scaled by its max|ref|, the times, and the
-    bound counted from the pairs this data walks and keeps."""
+    the error per gradient row scaled by its max|ref|, rows 10-15 and the
+    slots past each tile's walk exactly zero, the times, and the bound
+    counted from the pairs this data walks and keeps."""
+    import torch
+
     from prometheus_torch.ops.gaussian.compositor import (
         composite_tiles_bwd, composite_tiles_bwd_plain_counted)
 
@@ -517,8 +527,11 @@ def check_composite_bwd(label: str, data, gout, counts, grid_w: int,
     scaled = float((errs / ref[:, :10].abs().amax(dim=(0, 2))).max())
     err = float(errs.max())
     pad_zero = float(out[:, 10:].abs().max()) == 0.0
+    past_walk = (torch.arange(data.shape[2], device=data.device)[None, :]
+                 >= walked.to(data.device)[:, None])
+    unwalked_zero = not bool(out[:, :10].transpose(0, 1)[:, past_walk].any())
     del out, ref
-    ms = cuda_time_ms(lambda: composite_tiles_bwd(*args))
+    ms = median_ms(lambda: composite_tiles_bwd(*args))
     plain_ms = cuda_time_ms(lambda: composite_tiles_bwd_plain_counted(*args),
                             iters=1, warmup=0)
     n_t, _, cap = data.shape
@@ -529,18 +542,19 @@ def check_composite_bwd(label: str, data, gout, counts, grid_w: int,
     bound_ms, bound_by = bound(
         COMPB_OPS_WALKED * pairs_walked + COMPB_OPS_KEPT * pairs_kept,
         PEAK_FP32_FLOPS, nbytes)
-    ok = scaled <= COMPB_TOL and pad_zero
+    ok = scaled <= COMPB_TOL and pad_zero and unwalked_zero
     log(f"kernel C ({label}; {n_t} tiles x K {cap}, {int(counts.sum())} "
         f"instances binned, {int(walked.sum())} slots walked; "
         f"{pairs_walked:.0f} pixel pairs walked, {pairs_kept:.0f} kept "
         f"({pairs_kept / max(pairs_walked, 1):.4f})): max_abs_err {err:.3e} "
         f"scaled_err {scaled:.3e} (tol {COMPB_TOL:g}); rows 10-15 zero "
-        f"{pad_zero}; ms {ms:.4f} plain_ms {plain_ms:.4f} bound_ms "
+        f"{pad_zero}, unwalked slots zero {unwalked_zero}; ms {ms:.4f} "
+        f"plain_ms {plain_ms:.4f} bound_ms "
         f"{bound_ms:.4f} ({bound_by}) {'ok' if ok else 'FAIL'}")
     if not ok:
         raise RuntimeError(f"kernel C disagrees with its plain version "
-                           f"({label}): scaled error {scaled} > {COMPB_TOL} "
-                           f"or nonzero pad rows")
+                           f"({label}): scaled error {scaled} > {COMPB_TOL}, "
+                           f"or nonzero pad rows or unwalked slots")
     return dict(max_abs_err=err, scaled_err=scaled, ms=ms, plain_ms=plain_ms,
                 bound_ms=bound_ms, bound_by=bound_by, shape=[n_t, 16, cap],
                 pairs_walked=pairs_walked, pairs_kept=pairs_kept)
@@ -680,7 +694,7 @@ def profile_run(label: str, fn, log_name: str):
                and not getattr(e, "is_user_annotation", False)]
     if not kernels:
         log(f"profile ({label}): the profiler recorded no device time")
-        return result
+        return result, {}
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
     by_class = {}
     for e in kernels:
@@ -696,22 +710,23 @@ def profile_run(label: str, fn, log_name: str):
                  count=e.count) for e in top]
     for r in rows[:10]:
         log(f"  {r['ms']:8.2f} ms x{r['count']:<5d} {r['kernel'][:90]}")
-    # kernels A and A-bwd by launched kernel (A-bwd's D_i pre-pass, main
-    # kernel and dQ conversion, or its D = 512 kernels), with ms a launch
+    # the port's kernels by launched kernel (A-bwd's D_i pre-pass, main
+    # kernel and dQ conversion, its D = 512 scores and grads kernels; B, C),
+    # with ms a launch
     for r in rows:
-        if kernel_class(r["kernel"]).startswith("flash_attn"):
-            log(f"  attention {short_name(r['kernel'])}: {r['ms']:.3f} ms "
+        if "(kernel " in kernel_class(r["kernel"]):
+            log(f"  port kernel {short_name(r['kernel'])}: {r['ms']:.3f} ms "
                 f"x{r['count']} "
                 f"({r['ms'] / r['count']:.4f} ms a launch)")
     (LOG_DIR / log_name).write_text(json.dumps(dict(
         wall_ms=wall_ms, busy_ms=busy_ms, by_class_ms=by_class,
         kernels=rows), indent=1))
-    return result
+    return result, by_class
 
 
 def phase_profile(pipe, kw) -> None:
     """One warm ``generate`` under the profiler."""
-    result = profile_run(
+    result, _ = profile_run(
         f"warm generate, {kw['num_inference_steps']} steps",
         lambda: pipe.generate(PROMPT, **kw), "profile.json")
     log("profiled generate stages: " + " ".join(
@@ -886,7 +901,7 @@ def phase_train(seed: int):
     (LOG_DIR / "train_steps.json").write_text(json.dumps(dict(
         batch=batch, steps=res["steps"], peak_bytes=res["peak"],
         launches=res["launches"]), indent=1))
-    return trainer, res["launches"], captured["args"]
+    return trainer, marks, res["launches"], captured["args"]
 
 
 def main() -> int:
@@ -917,8 +932,16 @@ def main() -> int:
     phase_profile(pipe, kw)
     del pipe
     torch.cuda.empty_cache()
-    trainer, train_launches, c_args = phase_train(SEED)
-    profile_run("warm train step", trainer.step, "profile_train.json")
+    trainer, marks, train_launches, c_args = phase_train(SEED)
+    _, by_class = profile_run("warm train step", trainer.step,
+                              "profile_train.json")
+    # the same launch of kernel C read both ways: the profiler's device time
+    # and the CUDA events that ``instrument`` records around it
+    c_class = "composite_bwd (kernel C)"
+    log(f"kernel C inside the profiled train step: profiler "
+        f"{by_class.get(c_class, 0.0):.3f} ms, CUDA events around its launch "
+        + f"{marks['kernel C start'].elapsed_time(marks['kernel C end']):.3f}"
+        + " ms")
     del trainer
     torch.cuda.empty_cache()
     # kernel C once more, on the worklists of the last counted train step

@@ -19,23 +19,47 @@
 // the Pallas kernel, the walk has no early stop: it covers every chunk the
 // tile's count reaches, all 128 slots of each (dead slots carry opacity 0).
 //
-// Design: one block per (view, tile), one thread per pixel, all views in one
-// launch. Pass 1 walks the worklist front to back and keeps the
-// transmittance at every 32-instance boundary in shared memory (K / 32 x
-// 256 floats, 32 KB at K = 1024), in place of the TPU kernel's log-space
-// reconstruction. Pass 2 walks the chunks back to front; for each
-// 32-instance sub-chunk a thread recomputes alpha and T forward into
-// registers, then walks it in reverse with its running suffix sum S. The 10
-// gradients of each instance are summed over a warp with shuffles (skipped
-// when no pixel of the warp sees the instance), then over the 8 warps
-// through shared memory, and written once.
-//
 // What bounds it on an H100: the fp32 arithmetic of evaluating alpha for
 // every (pixel, instance) pair walked and of the gradient for every pair the
 // cutoff keeps, against 40 bytes read per walked instance and the 16 x K x 4
-// bytes of gdata written per tile.
+// bytes of gdata written per tile; device memory is far from the limit. In
+// practice the instructions issued per pair bound it: alpha is evaluated
+// twice for every walked pair (once to find the transmittance, once to walk
+// back), ~25 instructions each with the falloff rounded op by op
+// (splat_alpha.cuh), and summing ten gradients per instance over a tile's
+// pixels costs 50 shuffles a warp with plain warp sums.
+//
+// Design: one block per (view, tile), all views in one launch; a thread owns
+// kPix = 2 vertically adjacent pixels of one column (128 threads a tile),
+// shares each instance's loads between them and adds their gradients in
+// registers before any reduction across lanes.
+// - Staging: the 10 used rows of a 128-instance chunk are copied by
+//   cp.async into shared memory instance-major (12 floats an instance, read
+//   back as two float4 and a float2 broadcast loads), double-buffered: the
+//   next chunk (pass 1) or the previous one (pass 2) is in flight while the
+//   current one is walked.
+// - Pass 1 walks the chunks front to back and keeps each pixel's
+//   transmittance at every 16-instance boundary in shared memory (K / 16 x
+//   256 floats, 64 KB at K = 1024), in place of the TPU kernel's log-space
+//   reconstruction (T is never rebuilt by dividing by 1 - alpha).
+// - Pass 2 walks the chunks back to front; for each 16-instance sub-chunk a
+//   thread recomputes alpha and T forward into registers for its pixels,
+//   then walks the sub-chunk in reverse with each pixel's running suffix sum
+//   S. The ten gradients of three consecutive instances (30 of 32 values a
+//   lane) are summed over the warp by one reduce-scatter butterfly: each of
+//   its 5 steps hands half of the values a lane holds to its partner, 16 +
+//   8 + 4 + 2 + 1 = 31 shuffles for 3 instances where warp sums take 150,
+//   after which lane L holds value L; a group no pixel of the warp sees is
+//   skipped. The lanes store their sums as per-warp partials of the chunk,
+//   and the block adds the 4 warps' partials in a fixed order once per
+//   128-instance chunk (two block barriers a chunk), so the result does not
+//   depend on the order warps run in. Shared memory 96 KB at K = 1024.
+// Chosen by measurement among 1 or 2 pixels a thread, 16- or 32-instance
+// sub-chunks, exact or fast division, and a warp-level skip of instances
+// whose footprint misses the warp's rows (slower in every pairing).
 #include <cuda_runtime.h>
 #include <math.h>
+#include <stdint.h>
 
 #include "splat_alpha.cuh"
 
@@ -43,52 +67,107 @@ namespace {
 
 constexpr int kTile = 16;
 constexpr int kPixels = kTile * kTile;
-constexpr int kWarps = kPixels / 32;
 constexpr int kChunk = 128;
-constexpr int kSub = 32;
+constexpr int kPix = 2;  // pixels a thread: (col, 2 r) and (col, 2 r + 1)
+constexpr int kThreads = kPixels / kPix;
+constexpr int kWarps = kThreads / 32;
+constexpr int kSub = 16;  // instances between transmittance checkpoints
 constexpr int kSubs = kChunk / kSub;
 constexpr int kChannels = 16;
 constexpr int kUsed = 10;
+constexpr int kStride = 12;  // floats of one staged instance
+constexpr int kGroup = 3;    // instances a butterfly sums
+constexpr int kGroups = (kSub + kGroup - 1) / kGroup;
 constexpr float kMaxAlpha = 0.999f;
 constexpr float kAlphaCutoff = 1.0f / 255.0f;
+constexpr unsigned kFull = 0xffffffffu;
 
-__device__ __forceinline__ float alpha_at(float (*s)[kChunk], int j,
-                                          float px, float py) {
-  const float dx = px - s[0][j];
-  const float dy = py - s[1][j];
-  const float sigma = splat_sigma(s[2][j], s[3][j], s[4][j], dx, dy);
-  const float raw = splat_alpha_raw(s[8][j], sigma);
+// one staged instance: the data rows 0-9
+struct Splat {
+  float mx, my, a, b, c, r, g, bl, op, z;
+};
+
+__device__ __forceinline__ Splat load_splat(const float* s) {
+  const float4 x = *reinterpret_cast<const float4*>(s);
+  const float4 y = *reinterpret_cast<const float4*>(s + 4);
+  const float2 z = *reinterpret_cast<const float2*>(s + 8);
+  return {x.x, x.y, x.z, x.w, y.x, y.y, y.z, y.w, z.x, z.y};
+}
+
+__device__ __forceinline__ float alpha_at(const Splat& s, float px, float py) {
+  const float dx = px - s.mx;
+  const float dy = py - s.my;
+  const float sigma = splat_sigma(s.a, s.b, s.c, dx, dy);
+  const float raw = splat_alpha_raw(s.op, sigma);
   return (raw >= kAlphaCutoff && sigma >= 0.f) ? fminf(raw, kMaxAlpha) : 0.f;
 }
 
-__device__ __forceinline__ float warp_sum(float x) {
-  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;" ::"r"(
+                   static_cast<uint32_t>(__cvta_generic_to_shared(dst))),
+               "l"(src)
+               : "memory");
 }
 
-// Stage rows 0-9 of the 128 slots of chunk c in shared memory.
-__device__ __forceinline__ void stage(float (*s)[kChunk], const float* d, int K,
-                                      int c) {
-  for (int i = threadIdx.x; i < kUsed * kChunk; i += kPixels) {
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;" ::: "memory");
+}
+
+// Start copying rows 0-9 of the 128 slots of chunk c into s, instance-major.
+__device__ __forceinline__ void stage_async(float* s, const float* d, int K, int c) {
+  for (int i = threadIdx.x; i < kUsed * kChunk; i += kThreads) {
     const int row = i / kChunk, j = i % kChunk;
-    s[row][j] = d[size_t(row) * K + c * kChunk + j];
+    cp_async4(s + j * kStride + row, d + size_t(row) * K + c * kChunk + j);
+  }
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+
+// One step of a reduce-scatter over the warp: a lane holds 2 H values and
+// keeps H of them, the upper half where lane bit H is set (the lower half
+// goes to its partner, which keeps the lower half), adding the partner's.
+template <int H>
+__device__ __forceinline__ void reduce_step(float (&x)[32], int lane) {
+  const bool up = lane & H;
+#pragma unroll
+  for (int i = 0; i < H; ++i) {
+    const float send = up ? x[i] : x[i + H];
+    const float keep = up ? x[i + H] : x[i];
+    x[i] = keep + __shfl_xor_sync(kFull, send, H);
   }
 }
 
-__global__ void __launch_bounds__(kPixels)
+// Sum value L of x over the warp into lane L: 16 + 8 + 4 + 2 + 1 shuffles.
+__device__ __forceinline__ float reduce_scatter(float (&x)[32], int lane) {
+  reduce_step<16>(x, lane);
+  reduce_step<8>(x, lane);
+  reduce_step<4>(x, lane);
+  reduce_step<2>(x, lane);
+  reduce_step<1>(x, lane);
+  return x[0];
+}
+
+__global__ void __launch_bounds__(kThreads)
 composite_bwd_kernel(const float* __restrict__ data, const float* __restrict__ gout,
                      const int* __restrict__ counts, float* __restrict__ gdata,
                      int K, int grid_w, int tiles_per_view) {
-  extern __shared__ float smem[];
-  float(*s)[kChunk] = reinterpret_cast<float(*)[kChunk]>(smem);  // [kUsed][kChunk]
-  float* red = smem + kUsed * kChunk;                 // [kWarps][kSub][kUsed]
-  float* t_sub = red + kWarps * kSub * kUsed;         // [K / kSub][kPixels]
+  extern __shared__ __align__(16) float smem[];
+  float* stage = smem;                             // [2][kChunk][kStride]
+  float* part = stage + 2 * kChunk * kStride;      // [kWarps][kUsed][kChunk]
+  float* t_sub = part + kWarps * kUsed * kChunk;   // [K / kSub][kPixels]
 
   const int t = blockIdx.x;
   const int local = t % tiles_per_view;
-  const int p = threadIdx.x, warp = p / 32, lane = p % 32;
-  const float px = float((local % grid_w) * kTile + p % kTile) + 0.5f;
-  const float py = float((local / grid_w) * kTile + p / kTile) + 0.5f;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  // pixels (col, row0 + q), q < kPix, of the tile
+  const int col = tid % kTile, row0 = kPix * (tid / kTile);
+  const float px = float((local % grid_w) * kTile + col) + 0.5f;
+  float py[kPix];
+  int pix[kPix];
+#pragma unroll
+  for (int q = 0; q < kPix; ++q) {
+    py[q] = float((local / grid_w) * kTile + row0 + q) + 0.5f;
+    pix[q] = (row0 + q) * kTile + col;
+  }
   const float* d = data + size_t(t) * kChannels * K;
   float* g = gdata + size_t(t) * kChannels * K;
   const int count = min(counts[t], K);
@@ -96,88 +175,123 @@ composite_bwd_kernel(const float* __restrict__ data, const float* __restrict__ g
   const int walked = n_chunks * kChunk;
 
   // what the walk does not write: rows 10-15, and slots past the walk
-  for (int i = p; i < (kChannels - kUsed) * K; i += kPixels) g[size_t(kUsed) * K + i] = 0.f;
-  for (int i = p; i < kUsed * (K - walked); i += kPixels)
+  for (int i = tid; i < (kChannels - kUsed) * K; i += kThreads) g[size_t(kUsed) * K + i] = 0.f;
+  for (int i = tid; i < kUsed * (K - walked); i += kThreads)
     g[size_t(i / (K - walked)) * K + walked + i % (K - walked)] = 0.f;
+  if (n_chunks == 0) return;
 
-  const float* go = gout + size_t(t) * 8 * kPixels + p;
-  const float gR = go[0], gG = go[kPixels], gB = go[2 * kPixels];
-  const float gZ = go[3 * kPixels], gA = go[4 * kPixels];
+  float gR[kPix], gG[kPix], gB[kPix], gZ[kPix], gA[kPix];
+  const float* go = gout + size_t(t) * 8 * kPixels;
+#pragma unroll
+  for (int q = 0; q < kPix; ++q) {
+    gR[q] = go[pix[q]];
+    gG[q] = go[kPixels + pix[q]];
+    gB[q] = go[2 * kPixels + pix[q]];
+    gZ[q] = go[3 * kPixels + pix[q]];
+    gA[q] = go[4 * kPixels + pix[q]];
+  }
 
   // pass 1: transmittance at every sub-chunk boundary
-  float T = 1.f;
+  float T[kPix];
+#pragma unroll
+  for (int q = 0; q < kPix; ++q) T[q] = 1.f;
+  stage_async(stage, d, K, 0);
   for (int c = 0; c < n_chunks; ++c) {
-    __syncthreads();  // the previous chunk's readers are done
-    stage(s, d, K, c);
-    __syncthreads();
+    cp_async_wait_all();
+    __syncthreads();  // chunk c is in; every thread is done with chunk c - 1
+    if (c + 1 < n_chunks) stage_async(stage + ((c + 1) & 1) * kChunk * kStride, d, K, c + 1);
+    const float* s = stage + (c & 1) * kChunk * kStride;
     for (int sb = 0; sb < kSubs; ++sb) {
-      t_sub[(c * kSubs + sb) * kPixels + p] = T;
-      for (int jj = 0; jj < kSub; ++jj) T *= 1.f - alpha_at(s, sb * kSub + jj, px, py);
+#pragma unroll
+      for (int q = 0; q < kPix; ++q) t_sub[(c * kSubs + sb) * kPixels + pix[q]] = T[q];
+#pragma unroll 8
+      for (int jj = 0; jj < kSub; ++jj) {
+        const Splat sp = load_splat(s + (sb * kSub + jj) * kStride);
+#pragma unroll
+        for (int q = 0; q < kPix; ++q) T[q] *= 1.f - alpha_at(sp, px, py[q]);
+      }
     }
   }
 
-  // pass 2: back to front with the running suffix sum S of u w
-  float S = 0.f;
+  // pass 2: back to front with each pixel's running suffix sum S of u w.
+  // Chunk n_chunks - 1 is still staged from pass 1.
+  float S[kPix];
+#pragma unroll
+  for (int q = 0; q < kPix; ++q) S[q] = 0.f;
   for (int c = n_chunks - 1; c >= 0; --c) {
-    __syncthreads();
-    stage(s, d, K, c);
-    __syncthreads();
+    cp_async_wait_all();
+    __syncthreads();  // chunk c is in; the last chunk's partials are summed
+    if (c > 0) stage_async(stage + ((c - 1) & 1) * kChunk * kStride, d, K, c - 1);
+    const float* s = stage + (c & 1) * kChunk * kStride;
     for (int sb = kSubs - 1; sb >= 0; --sb) {
-      float al[kSub], tin[kSub];
-      float Tc = t_sub[(c * kSubs + sb) * kPixels + p];
+      float al[kSub][kPix], tin[kSub][kPix];
+      float Tc[kPix];
+#pragma unroll
+      for (int q = 0; q < kPix; ++q) Tc[q] = t_sub[(c * kSubs + sb) * kPixels + pix[q]];
 #pragma unroll
       for (int jj = 0; jj < kSub; ++jj) {
-        al[jj] = alpha_at(s, sb * kSub + jj, px, py);
-        tin[jj] = Tc;
-        Tc *= 1.f - al[jj];
+        const Splat sp = load_splat(s + (sb * kSub + jj) * kStride);
+#pragma unroll
+        for (int q = 0; q < kPix; ++q) {
+          al[jj][q] = alpha_at(sp, px, py[q]);
+          tin[jj][q] = Tc[q];
+          Tc[q] *= 1.f - al[jj][q];
+        }
       }
+      // groups of kGroup instances from the top of the sub-chunk down
 #pragma unroll
-      for (int jj = kSub - 1; jj >= 0; --jj) {
-        const int j = sb * kSub + jj;
-        const float a = al[jj];
-        float v[kUsed];
+      for (int grp = 0; grp < kGroups; ++grp) {
+        constexpr int kLast = kSub - kGroup * (kGroups - 1);  // instances of the last group
+        const int n_in = grp < kGroups - 1 ? kGroup : kLast;
+        float v[32];
 #pragma unroll
-        for (int r = 0; r < kUsed; ++r) v[r] = 0.f;
-        if (__any_sync(0xffffffffu, a > 0.f)) {
-          if (a > 0.f) {
-            const float ti = tin[jj], w = a * ti;
-            const float u = s[5][j] * gR + s[6][j] * gG + s[7][j] * gB + s[9][j] * gZ + gA;
-            if (a < kMaxAlpha) {  // live: the 0.999 clamp passes no gradient
-              const float da = u * ti - S / fmaxf(1.f - a, 1e-3f);
-              const float dsig = -a * da;
-              const float dx = px - s[0][j], dy = py - s[1][j];
-              const float ca = s[2][j], cb = s[3][j], cc = s[4][j];
-              v[0] = -dsig * (ca * dx + cb * dy);
-              v[1] = -dsig * (cc * dy + cb * dx);
-              v[2] = dsig * 0.5f * dx * dx;
-              v[3] = dsig * dx * dy;
-              v[4] = dsig * 0.5f * dy * dy;
-              const float op = s[8][j];
-              v[8] = op > 0.f ? da * (a / fmaxf(op, 1e-8f)) : 0.f;
+        for (int i = 0; i < 32; ++i) v[i] = 0.f;
+        bool seen = false;
+#pragma unroll
+        for (int k = 0; k < kGroup; ++k) {
+          if (k >= n_in) continue;
+          const int jj = kSub - 1 - kGroup * grp - k;
+          const Splat sp = load_splat(s + (sb * kSub + jj) * kStride);
+#pragma unroll
+          for (int q = 0; q < kPix; ++q) {
+            const float a = al[jj][q];
+            if (a > 0.f) {
+              seen = true;
+              const float ti = tin[jj][q], w = a * ti;
+              const float u = sp.r * gR[q] + sp.g * gG[q] + sp.bl * gB[q] + sp.z * gZ[q] + gA[q];
+              if (a < kMaxAlpha) {  // live: the 0.999 clamp passes no gradient
+                const float da = u * ti - __fdividef(S[q], fmaxf(1.f - a, 1e-3f));
+                const float dsig = -a * da;
+                const float dx = px - sp.mx, dy = py[q] - sp.my;
+                v[kUsed * k + 0] += -dsig * (sp.a * dx + sp.b * dy);
+                v[kUsed * k + 1] += -dsig * (sp.c * dy + sp.b * dx);
+                v[kUsed * k + 2] += dsig * 0.5f * dx * dx;
+                v[kUsed * k + 3] += dsig * dx * dy;
+                v[kUsed * k + 4] += dsig * 0.5f * dy * dy;
+                v[kUsed * k + 8] += sp.op > 0.f ? da * __fdividef(a, fmaxf(sp.op, 1e-8f)) : 0.f;
+              }
+              v[kUsed * k + 5] += gR[q] * w;
+              v[kUsed * k + 6] += gG[q] * w;
+              v[kUsed * k + 7] += gB[q] * w;
+              v[kUsed * k + 9] += gZ[q] * w;
+              S[q] += u * w;
             }
-            v[5] = gR * w;
-            v[6] = gG * w;
-            v[7] = gB * w;
-            v[9] = gZ * w;
-            S += u * w;
           }
-#pragma unroll
-          for (int r = 0; r < kUsed; ++r) v[r] = warp_sum(v[r]);
         }
-        if (lane == 0) {
-#pragma unroll
-          for (int r = 0; r < kUsed; ++r) red[(warp * kSub + jj) * kUsed + r] = v[r];
+        const float sum = __any_sync(kFull, seen) ? reduce_scatter(v, lane) : 0.f;
+        if (lane < kUsed * n_in) {
+          const int jj = kSub - 1 - kGroup * grp - lane / kUsed;
+          part[(warp * kUsed + lane % kUsed) * kChunk + sb * kSub + jj] = sum;
         }
       }
-      __syncthreads();
-      for (int i = p; i < kUsed * kSub; i += kPixels) {
-        const int r = i / kSub, jj = i % kSub;
-        float sum = 0.f;
+    }
+    __syncthreads();  // every warp's partials of chunk c are in
+    for (int i = tid; i < kUsed * kChunk; i += kThreads) {
+      const int r = i / kChunk, j = i % kChunk;
+      float sum = 0.f;
 #pragma unroll
-        for (int w = 0; w < kWarps; ++w) sum += red[(w * kSub + jj) * kUsed + r];
-        g[size_t(r) * K + c * kChunk + sb * kSub + jj] = sum;
-      }
-      __syncthreads();  // red is rewritten by the next sub-chunk
+      for (int w = 0; w < kWarps; ++w) sum += part[(w * kUsed + r) * kChunk + j];
+      g[size_t(r) * K + c * kChunk + j] = sum;
     }
   }
 }
@@ -194,11 +308,11 @@ extern "C" int composite_bwd(const void* data, const void* gout, const void* cou
   if (n_tiles <= 0 || K <= 0 || K % kChunk || grid_w <= 0 || tiles_per_view <= 0)
     return int(cudaErrorInvalidValue);
   const size_t bytes =
-      sizeof(float) * (kUsed * kChunk + kWarps * kSub * kUsed + size_t(K / kSub) * kPixels);
+      sizeof(float) * (2 * kChunk * kStride + kWarps * kUsed * kChunk + size_t(K / kSub) * kPixels);
   cudaError_t err = cudaFuncSetAttribute(
       composite_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(bytes));
   if (err != cudaSuccess) return int(err);
-  composite_bwd_kernel<<<n_tiles, kPixels, bytes, static_cast<cudaStream_t>(stream)>>>(
+  composite_bwd_kernel<<<n_tiles, kThreads, bytes, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(data), static_cast<const float*>(gout),
       static_cast<const int*>(counts), static_cast<float*>(gdata), K, grid_w,
       tiles_per_view);

@@ -46,15 +46,33 @@
 // 2 x 20 KB: 138 KB. Registers a consumer thread: S^T, dP^T 32 each, dV, dK
 // 40 each, dQ 40, P and dS as bf16 16 each.
 //
-// D = 512 (the VAE mid block) keeps the first design, WMMA 16x16x16 with the
-// score tiles and accumulators in shared memory: the delta pass, a dK/dV
-// kernel per 16-key tile (two fp32 accumulators of 16 x 516 floats so a
-// block fits in 227 KB) and a dQ kernel per 32-query tile that recomputes S
-// and dP; its dQ does not depend on block order.
+// D = 512 (the VAE decoder's mid block) cannot keep a key tile's dK and dV
+// in registers: a 64-key tile's two 64 x 512 fp32 accumulators are 256 KB,
+// the SM's whole register file. So it works in two phases with P and dS in
+// device memory, each a wgmma kernel with the D <= 80 kernels' three
+// warpgroups (a TMA producer, two consumers) and an mbarrier ring:
+//   1. delta, as above;
+//   2. scores: one block per (128 query rows, 128 keys, batch*head): S =
+//      Q K^T and dP = dO V^T over the 512-column depth in 8 TMA steps of 64
+//      columns (3-stage ring, 64 KB a stage), each consumer 64 query rows
+//      x 128 keys of both (128 accumulator registers); the epilogue writes
+//      P = exp2(S scale log2 e - lse log2 e) and dS = P (dP - D_i) as bf16
+//      into (G, T, T) scratch;
+//   3. grads: one batched GEMM kernel for dV = P^T dO, dK = scale dS^T Q
+//      and dQ = scale dS K, one block per (128 output rows, product and 256
+//      output columns, batch*head), each consumer 64 x 256 in registers
+//      (four m64n64 accumulators), the T-deep reduction in 64-row TMA steps
+//      (4-stage ring, 48 KB a stage); P^T and dS^T are the scratch tiles
+//      read through wgmma's transpose bit, dO, Q and K MN-major as in the
+//      D <= 80 kernel.
+// 10 B H T^2 D operations, no atomics (so no gradient depends on the order
+// blocks run in), and 2 x G x T^2 bf16 of scratch: 64 MB at the train step's
+// (16, 1024, 1, 512), whose round trip (~128 MB) costs ~0.04 ms at 3.35
+// TB/s against a 0.087 ms compute floor. The caller sizes G (batch*head
+// pairs a group); larger calls run phases 2 and 3 group by group.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
-#include <mma.h>
 #include <stdint.h>
 
 #include "hopper.cuh"
@@ -62,98 +80,17 @@
 namespace {
 
 using bf16 = __nv_bfloat16;
-using namespace nvcuda;
 using namespace hopper;
 
-// ------------------------------- D = 512 (WMMA), and the D_i pre-pass of both
+// ------------------------------------------------------ the D_i pre-pass
 
-constexpr int kWarps = 8;
+constexpr int kWarps = 8;  // a delta block: one warp per row
 constexpr int kThreads = kWarps * 32;
 constexpr float kLog2e = 1.4426950408889634f;
-
-constexpr size_t align128(size_t x) { return (x + 127) & ~size_t(127); }
-
-// Shared memory of both kernels. RES rows of two resident tiles (the
-// block's own K, V for dkv; Q, dO for dq), STR rows of two streamed tiles,
-// the BQ x BK score and dP tiles, the bf16 P and dS tiles, NACC fp32
-// accumulators of RES x DP, and the lse / D values of the BQ query rows.
-template <int DP, int BQ, int BK, int RES, int STR, int NACC>
-struct Layout {
-  static constexpr int LDB = DP + 8;  // bf16 row stride of Q, K, V, dO tiles
-  static constexpr int LDS = BK + 4;  // f32 row stride of S and dP
-  static constexpr int LDP = BK + 8;  // bf16 row stride of P and dS
-  static constexpr int LDA = DP + 4;  // f32 row stride of the accumulators
-  static constexpr size_t res_off = 0;
-  static constexpr size_t str_off = align128(res_off + size_t(2) * RES * LDB * 2);
-  static constexpr size_t s_off = align128(str_off + size_t(2) * STR * LDB * 2);
-  static constexpr size_t dp_off = align128(s_off + size_t(BQ) * LDS * 4);
-  static constexpr size_t p_off = align128(dp_off + size_t(BQ) * LDS * 4);
-  static constexpr size_t ds_off = align128(p_off + size_t(BQ) * LDP * 2);
-  static constexpr size_t acc_off = align128(ds_off + size_t(BQ) * LDP * 2);
-  static constexpr size_t lse_off = align128(acc_off + size_t(NACC) * RES * LDA * 4);
-  static constexpr size_t dl_off = lse_off + size_t(BQ) * 4;
-  static constexpr size_t bytes = align128(dl_off + size_t(BQ) * 4);
-};
-
-// Copy ROWS rows of D bf16 (16-byte vectors) into a shared tile of width DP,
-// zero-filling columns D..DP-1.
-template <int DP, int ROWS, int LD>
-__device__ __forceinline__ void load_tile(bf16* dst, const bf16* src,
-                                          int row_stride, int D) {
-  const int vecs = D / 8;
-  const int per_row = DP / 8;
-  for (int i = threadIdx.x; i < ROWS * per_row; i += kThreads) {
-    const int r = i / per_row, c = i % per_row;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (c < vecs)
-      val = *reinterpret_cast<const uint4*>(src + size_t(r) * row_stride + c * 8);
-    *reinterpret_cast<uint4*>(dst + r * LD + c * 8) = val;
-  }
-}
 
 __device__ __forceinline__ float warp_sum(float x) {
   for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
   return x;
-}
-
-// OUT (BQ x BK, f32) = A (BQ x DP) B^T for the two products S = Q K^T and
-// dP = dO V^T, one 16x16 output tile per warp at a time.
-template <int DP, int BQ, int BK, int LDB, int LDS>
-__device__ __forceinline__ void scores(const bf16* Qs, const bf16* Ks,
-                                       const bf16* dOs, const bf16* Vs,
-                                       float* Ss, float* dPs) {
-  constexpr int cols = BK / 16;
-  constexpr int per = (BQ / 16) * cols;
-  const int warp = threadIdx.x / 32;
-  for (int tile = warp; tile < 2 * per; tile += kWarps) {
-    const int which = tile / per, tm = (tile % per) / cols, tn = tile % cols;
-    const bf16* A = which ? dOs : Qs;
-    const bf16* B = which ? Vs : Ks;
-    float* out = which ? dPs : Ss;
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-    wmma::fill_fragment(acc, 0.f);
-    for (int kk = 0; kk < DP; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fa;
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> fb;
-      wmma::load_matrix_sync(fa, A + tm * 16 * LDB + kk, LDB);
-      wmma::load_matrix_sync(fb, B + tn * 16 * LDB + kk, LDB);
-      wmma::mma_sync(acc, fa, fb, acc);
-    }
-    wmma::store_matrix_sync(out + tm * 16 * LDS + tn * 16, acc, LDS,
-                            wmma::mem_row_major);
-  }
-}
-
-// One row per thread slot: lse in log2 units and D_i for the BQ query rows
-// starting at q0 of head bh.
-template <int BQ>
-__device__ __forceinline__ void load_rows(float* lse2, float* dl,
-                                          const float* lse, const float* delta,
-                                          int bh, int T, int q0) {
-  for (int r = threadIdx.x; r < BQ; r += kThreads) {
-    lse2[r] = lse[size_t(bh) * T + q0 + r] * kLog2e;
-    dl[r] = delta[size_t(bh) * T + q0 + r];
-  }
 }
 
 __global__ void __launch_bounds__(kThreads)
@@ -171,160 +108,6 @@ flash_bwd_delta_kernel(const bf16* __restrict__ o, const bf16* __restrict__ dout
   if (lane == 0) {
     const int b = row / (T * H), t = (row / H) % T, h = row % H;
     delta[(size_t(b) * H + h) * T + t] = s;
-  }
-}
-
-template <int DP, int BQ, int BK>
-using DkvLayout = Layout<DP, BQ, BK, BK, BQ, 2>;
-
-template <int DP, int BQ, int BK>
-__global__ void __launch_bounds__(kThreads)
-flash_bwd_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                     const bf16* __restrict__ v, const bf16* __restrict__ dout,
-                     const float* __restrict__ lse, const float* __restrict__ delta,
-                     bf16* __restrict__ dk, bf16* __restrict__ dv, int T, int H,
-                     int D, float scale) {
-  using L = DkvLayout<DP, BQ, BK>;
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* Ks = reinterpret_cast<bf16*>(smem + L::res_off);
-  bf16* Vs = Ks + BK * L::LDB;
-  bf16* Qs = reinterpret_cast<bf16*>(smem + L::str_off);
-  bf16* dOs = Qs + BQ * L::LDB;
-  float* Ss = reinterpret_cast<float*>(smem + L::s_off);
-  float* dPs = reinterpret_cast<float*>(smem + L::dp_off);
-  bf16* Ps = reinterpret_cast<bf16*>(smem + L::p_off);
-  bf16* dSs = reinterpret_cast<bf16*>(smem + L::ds_off);
-  float* dKa = reinterpret_cast<float*>(smem + L::acc_off);
-  float* dVa = dKa + BK * L::LDA;
-  float* lse2 = reinterpret_cast<float*>(smem + L::lse_off);
-  float* dl = reinterpret_cast<float*>(smem + L::dl_off);
-
-  const int bh = blockIdx.y, b = bh / H, h = bh % H;
-  const int k0 = blockIdx.x * BK;
-  const int row_stride = H * D;
-  const size_t base = (size_t(b) * T * H + h) * D;  // element (b, 0, h, 0)
-  const int warp = threadIdx.x / 32;
-  const float scale_log2 = scale * kLog2e;
-
-  load_tile<DP, BK, L::LDB>(Ks, k + base + size_t(k0) * row_stride, row_stride, D);
-  load_tile<DP, BK, L::LDB>(Vs, v + base + size_t(k0) * row_stride, row_stride, D);
-  for (int i = threadIdx.x; i < 2 * BK * L::LDA; i += kThreads) dKa[i] = 0.f;
-
-  for (int q0 = 0; q0 < T; q0 += BQ) {
-    __syncthreads();  // the previous tile's readers are done
-    load_tile<DP, BQ, L::LDB>(Qs, q + base + size_t(q0) * row_stride, row_stride, D);
-    load_tile<DP, BQ, L::LDB>(dOs, dout + base + size_t(q0) * row_stride, row_stride, D);
-    load_rows<BQ>(lse2, dl, lse, delta, bh, T, q0);
-    __syncthreads();
-    scores<DP, BQ, BK, L::LDB, L::LDS>(Qs, Ks, dOs, Vs, Ss, dPs);
-    __syncthreads();
-    for (int i = threadIdx.x; i < BQ * BK; i += kThreads) {
-      const int r = i / BK, c = i % BK;
-      const float p = exp2f(Ss[r * L::LDS + c] * scale_log2 - lse2[r]);
-      Ps[r * L::LDP + c] = __float2bfloat16(p);
-      dSs[r * L::LDP + c] = __float2bfloat16(p * (dPs[r * L::LDS + c] - dl[r]));
-    }
-    __syncthreads();
-    // dV += P^T dO and dK += dS^T Q: P and dS read column-major are P^T, dS^T
-    constexpr int cols = DP / 16;
-    constexpr int per = (BK / 16) * cols;
-    for (int tile = warp; tile < 2 * per; tile += kWarps) {
-      const int which = tile / per, tm = (tile % per) / cols, tn = tile % cols;
-      const bf16* A = which ? dSs : Ps;
-      const bf16* B = which ? Qs : dOs;
-      float* acc_tile = (which ? dKa : dVa) + tm * 16 * L::LDA + tn * 16;
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-      wmma::load_matrix_sync(acc, acc_tile, L::LDA, wmma::mem_row_major);
-      for (int kk = 0; kk < BQ; kk += 16) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::col_major> fa;
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> fb;
-        wmma::load_matrix_sync(fa, A + kk * L::LDP + tm * 16, L::LDP);
-        wmma::load_matrix_sync(fb, B + kk * L::LDB + tn * 16, L::LDB);
-        wmma::mma_sync(acc, fa, fb, acc);
-      }
-      wmma::store_matrix_sync(acc_tile, acc, L::LDA, wmma::mem_row_major);
-    }
-  }
-  __syncthreads();
-
-  for (int i = threadIdx.x; i < BK * D; i += kThreads) {
-    const int r = i / D, c = i % D;
-    const size_t at = base + size_t(k0 + r) * row_stride + c;
-    dk[at] = __float2bfloat16(dKa[r * L::LDA + c] * scale);
-    dv[at] = __float2bfloat16(dVa[r * L::LDA + c]);
-  }
-}
-
-template <int DP, int BQ, int BK>
-using DqLayout = Layout<DP, BQ, BK, BQ, BK, 1>;
-
-template <int DP, int BQ, int BK>
-__global__ void __launch_bounds__(kThreads)
-flash_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                    const bf16* __restrict__ v, const bf16* __restrict__ dout,
-                    const float* __restrict__ lse, const float* __restrict__ delta,
-                    bf16* __restrict__ dq, int T, int H, int D, float scale) {
-  using L = DqLayout<DP, BQ, BK>;
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* Qs = reinterpret_cast<bf16*>(smem + L::res_off);
-  bf16* dOs = Qs + BQ * L::LDB;
-  bf16* Ks = reinterpret_cast<bf16*>(smem + L::str_off);
-  bf16* Vs = Ks + BK * L::LDB;
-  float* Ss = reinterpret_cast<float*>(smem + L::s_off);
-  float* dPs = reinterpret_cast<float*>(smem + L::dp_off);
-  bf16* dSs = reinterpret_cast<bf16*>(smem + L::ds_off);
-  float* dQa = reinterpret_cast<float*>(smem + L::acc_off);
-  float* lse2 = reinterpret_cast<float*>(smem + L::lse_off);
-  float* dl = reinterpret_cast<float*>(smem + L::dl_off);
-
-  const int bh = blockIdx.y, b = bh / H, h = bh % H;
-  const int q0 = blockIdx.x * BQ;
-  const int row_stride = H * D;
-  const size_t base = (size_t(b) * T * H + h) * D;
-  const int warp = threadIdx.x / 32;
-  const float scale_log2 = scale * kLog2e;
-
-  load_tile<DP, BQ, L::LDB>(Qs, q + base + size_t(q0) * row_stride, row_stride, D);
-  load_tile<DP, BQ, L::LDB>(dOs, dout + base + size_t(q0) * row_stride, row_stride, D);
-  load_rows<BQ>(lse2, dl, lse, delta, bh, T, q0);
-  for (int i = threadIdx.x; i < BQ * L::LDA; i += kThreads) dQa[i] = 0.f;
-
-  for (int k0 = 0; k0 < T; k0 += BK) {
-    __syncthreads();
-    load_tile<DP, BK, L::LDB>(Ks, k + base + size_t(k0) * row_stride, row_stride, D);
-    load_tile<DP, BK, L::LDB>(Vs, v + base + size_t(k0) * row_stride, row_stride, D);
-    __syncthreads();
-    scores<DP, BQ, BK, L::LDB, L::LDS>(Qs, Ks, dOs, Vs, Ss, dPs);
-    __syncthreads();
-    for (int i = threadIdx.x; i < BQ * BK; i += kThreads) {
-      const int r = i / BK, c = i % BK;
-      const float p = exp2f(Ss[r * L::LDS + c] * scale_log2 - lse2[r]);
-      dSs[r * L::LDP + c] = __float2bfloat16(p * (dPs[r * L::LDS + c] - dl[r]));
-    }
-    __syncthreads();
-    // dQ += dS K
-    constexpr int cols = DP / 16;
-    for (int tile = warp; tile < (BQ / 16) * cols; tile += kWarps) {
-      const int tm = tile / cols, tn = tile % cols;
-      float* acc_tile = dQa + tm * 16 * L::LDA + tn * 16;
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-      wmma::load_matrix_sync(acc, acc_tile, L::LDA, wmma::mem_row_major);
-      for (int kk = 0; kk < BK; kk += 16) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fa;
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> fb;
-        wmma::load_matrix_sync(fa, dSs + tm * 16 * L::LDP + kk, L::LDP);
-        wmma::load_matrix_sync(fb, Ks + kk * L::LDB + tn * 16, L::LDB);
-        wmma::mma_sync(acc, fa, fb, acc);
-      }
-      wmma::store_matrix_sync(acc_tile, acc, L::LDA, wmma::mem_row_major);
-    }
-  }
-  __syncthreads();
-
-  for (int i = threadIdx.x; i < BQ * D; i += kThreads) {
-    const int r = i / D, c = i % D;
-    dq[base + size_t(q0 + r) * row_stride + c] =
-        __float2bfloat16(dQa[r * L::LDA + c] * scale);
   }
 }
 
@@ -649,50 +432,340 @@ int launch_main(const bf16* q, const bf16* k, const bf16* v, const bf16* o,
   return int(cudaGetLastError());
 }
 
-// D = 512, the WMMA design. DP: padded head dim; (QD, KD): query and key
-// tile rows of the dkv kernel; (QQ, KQ): those of the dq kernel.
-template <int DP, int QD, int KD, int QQ, int KQ>
-int launch_wmma(const bf16* q, const bf16* k, const bf16* v, const bf16* o,
-           const float* lse, const bf16* dout, float* delta, bf16* dq, bf16* dk,
-           bf16* dv, int B, int T, int H, int D, float scale, cudaStream_t s) {
-  if (T % QD || T % KD || T % QQ || T % KQ) return int(cudaErrorInvalidValue);
+// ---------------------------------------------------------------- D = 512
+
+constexpr int kT = 128;             // query rows and keys of a score tile
+constexpr uint32_t kBox = 64 * 128;  // bytes of a 64-row, 64-column box
+
+// Phase 1 stage: 64 columns of the depth of Q and dO (the tile's 128 query
+// rows) and of K and V (its 128 keys), 16 KB each
+struct ScoreLayout {
+  static constexpr int kStages = 3;
+  static constexpr uint32_t q = 0, k = 2 * kBox, dout = 4 * kBox, v = 6 * kBox;
+  static constexpr uint32_t stage = 8 * kBox;
+  static constexpr uint32_t bar = kStages * stage;                 // 192 KB
+  static constexpr uint32_t bytes = bar + 8 * 2 * kStages + 1024;  // + swizzle round-up
+};
+
+// Phase 2 stage: 64 rows of the reduction of the A operand (two 64 x 64
+// boxes of the P or dS scratch) and of the B operand (four 64-column boxes
+// of dO, Q or K: 256 output columns)
+struct GradLayout {
+  static constexpr int kStages = 4;
+  static constexpr uint32_t a = 0, b = 2 * kBox;
+  static constexpr uint32_t stage = 6 * kBox;
+  static constexpr uint32_t bar = kStages * stage;                 // 192 KB
+  static constexpr uint32_t bytes = bar + 8 * 2 * kStages + 1024;
+};
+
+__device__ __forceinline__ unsigned char* align1024(unsigned char* p) {
+  return reinterpret_cast<unsigned char*>((reinterpret_cast<uintptr_t>(p) + 1023) &
+                                          ~uintptr_t(1023));
+}
+
+// S += Q K^T and dP += dO V^T over the 64 columns of one stage, for this
+// warpgroup's 64 query rows and the tile's 128 keys
+template <bool ACC>
+__device__ __forceinline__ void score_step(float (&sc)[64], float (&dp)[64],
+                                           const unsigned char* st, int w) {
+  using L = ScoreLayout;
+  const uint64_t qd = desc(st + L::q + w * kBox, 16, 1024, kSw128);
+  const uint64_t kd = desc(st + L::k, 16, 1024, kSw128);
+  const uint64_t dod = desc(st + L::dout + w * kBox, 16, 1024, kSw128);
+  const uint64_t vd = desc(st + L::v, 16, 1024, kSw128);
+  mma_ss_n128<0, 0, ACC>(sc, qd, kd);
+  mma_ss_n128<0, 0, ACC>(dp, dod, vd);
+#pragma unroll
+  for (int kk = 1; kk < 4; ++kk) {
+    mma_ss_n128<0, 0, true>(sc, advance(qd, 32 * kk), advance(kd, 32 * kk));
+    mma_ss_n128<0, 0, true>(dp, advance(dod, 32 * kk), advance(vd, 32 * kk));
+  }
+}
+
+// Phase 1: one block per (128 keys, 128 query rows, batch*head of the
+// group). S = Q K^T and dP = dO V^T by wgmma over the 512-column depth in 8
+// TMA steps of 64 columns; the epilogue writes P = exp2(S scale log2 e - lse
+// log2 e) and dS = P (dP - D_i) as bf16 rows (query, key) of the group's
+// (G, T, T) scratch.
+__global__ void __launch_bounds__(kMainThreads, 1)
+flash_bwd512_scores_kernel(const __grid_constant__ CUtensorMap mq,
+                           const __grid_constant__ CUtensorMap mk,
+                           const __grid_constant__ CUtensorMap mv,
+                           const __grid_constant__ CUtensorMap mdo,
+                           const float* __restrict__ lse,
+                           const float* __restrict__ delta, bf16* __restrict__ p_out,
+                           bf16* __restrict__ ds_out, int T, int H, int bh0,
+                           float scale_log2) {
+  using L = ScoreLayout;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = align1024(smem_raw);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + L::bar);
+  uint64_t* empty = full + L::kStages;
+  const int k0 = blockIdx.x * kT, q0 = blockIdx.y * kT, g = blockIdx.z;
+  const int bh = bh0 + g, b = bh / H, h = bh % H;
+  constexpr int kSteps = 512 / 64;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < L::kStages; ++s) {
+      mbar_init(full + s, 1);
+      mbar_init(empty + s, kConsumers);
+    }
+    fence_mbar_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= kConsumers) {
+    // ---- producer warpgroup: one thread issues every load
+    reg_dealloc<40>();
+    if (threadIdx.x == kConsumers) {
+      for (int i = 0; i < kSteps; ++i) {
+        const int s = i % L::kStages;
+        unsigned char* st = smem + s * L::stage;
+        mbar_wait(empty + s, ((i / L::kStages) & 1) ^ 1);
+        mbar_expect_tx(full + s, L::stage);
+        tma_load_4d(st + L::q, &mq, full + s, 64 * i, h, q0, b);
+        tma_load_4d(st + L::k, &mk, full + s, 64 * i, h, k0, b);
+        tma_load_4d(st + L::dout, &mdo, full + s, 64 * i, h, q0, b);
+        tma_load_4d(st + L::v, &mv, full + s, 64 * i, h, k0, b);
+      }
+    }
+  } else {
+    // ---- consumer warpgroups: query rows q0 + 64 w .. q0 + 64 w + 63
+    reg_alloc<232>();
+    const int w = threadIdx.x / 128, t = threadIdx.x % 128;
+    const int r0 = 16 * (t / 32) + (t % 32) / 4, cq = 2 * (t % 4);
+    float sc[64], dp[64];
+    mbar_wait(full, 0);
+    wgmma_fence();
+    score_step<false>(sc, dp, smem, w);
+    wgmma_commit();
+    for (int i = 1; i < kSteps; ++i) {
+      const int s = i % L::kStages;
+      mbar_wait(full + s, (i / L::kStages) & 1);
+      wgmma_fence();
+      score_step<true>(sc, dp, smem + s * L::stage, w);
+      wgmma_commit();
+      wgmma_wait<1>();  // the step before is done: its stage is free
+      mbar_arrive(empty + (i - 1) % L::kStages);
+    }
+    wgmma_wait();
+    fence_regs(sc);
+    fence_regs(dp);
+
+    const int qa = q0 + 64 * w + r0;  // rows qa and qa + 8
+    float l2[2], dl[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      l2[r] = lse[size_t(bh) * T + qa + 8 * r] * kLog2e;
+      dl[r] = delta[size_t(bh) * T + qa + 8 * r];
+    }
+    const size_t row = (size_t(g) * T + qa) * T + k0;
+#pragma unroll
+    for (int j = 0; j < 64; j += 2) {
+      const int r = (j >> 1) & 1, c = 8 * (j / 4) + cq;
+      const float p0 = fast_exp2(fmaf(sc[j], scale_log2, -l2[r]));
+      const float p1 = fast_exp2(fmaf(sc[j + 1], scale_log2, -l2[r]));
+      const size_t at = row + size_t(8 * r) * T + c;
+      *reinterpret_cast<uint32_t*>(p_out + at) = pack_bf16(p0, p1);
+      *reinterpret_cast<uint32_t*>(ds_out + at) =
+          pack_bf16(p0 * (dp[j] - dl[r]), p1 * (dp[j + 1] - dl[r]));
+    }
+  }
+}
+
+// acc (64 x 256) += A (64 x 64) B (64 x 256) over one stage: A is this
+// warpgroup's box of the stage, K-major (TA = 0: dS rows, for dQ) or
+// MN-major (TA = 1: P or dS read as P^T or dS^T, for dV and dK); B is four
+// MN-major 64-column boxes
+template <int TA, bool ACC>
+__device__ __forceinline__ void grad_step(float (&acc)[4][32], const unsigned char* st,
+                                          int w) {
+  using L = GradLayout;
+  const uint64_t ad = desc(st + L::a + w * kBox, 16, 1024, kSw128);
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    const uint64_t a = advance(ad, TA ? 2048 * kk : 32 * kk);
+#pragma unroll
+    for (int n = 0; n < 4; ++n) {
+      const uint64_t bd = advance(desc(st + L::b + n * kBox, 16, 1024, kSw128), 2048 * kk);
+      if (ACC || kk > 0)
+        mma_ss_n64<TA, 1, true>(acc[n], a, bd);
+      else
+        mma_ss_n64<TA, 1, false>(acc[n], a, bd);
+    }
+  }
+}
+
+template <int TA>
+__device__ __forceinline__ void grad_mainloop(float (&acc)[4][32], unsigned char* smem,
+                                              uint64_t* full, uint64_t* empty, int steps,
+                                              int w) {
+  using L = GradLayout;
+  mbar_wait(full, 0);
+  wgmma_fence();
+  grad_step<TA, false>(acc, smem, w);
+  wgmma_commit();
+  for (int i = 1; i < steps; ++i) {
+    const int s = i % L::kStages;
+    mbar_wait(full + s, (i / L::kStages) & 1);
+    wgmma_fence();
+    grad_step<TA, true>(acc, smem + s * L::stage, w);
+    wgmma_commit();
+    wgmma_wait<1>();  // the step before is done: its stage is free
+    mbar_arrive(empty + (i - 1) % L::kStages);
+  }
+  wgmma_wait();
+#pragma unroll
+  for (int n = 0; n < 4; ++n) fence_regs(acc[n]);
+}
+
+// Phase 2: one block per (128 output rows, product and 256 output columns,
+// batch*head of the group), one batched GEMM for three products:
+//   dV = P^T dO, dK = scale dS^T Q (rows: keys), dQ = scale dS K (rows:
+//   queries),
+// each 128 x 256 of (T x 512) with a T-deep reduction in 64-row TMA steps;
+// the transposed scratch operands are read through wgmma's transpose bit.
+// Writes bf16 in BTNH.
+__global__ void __launch_bounds__(kMainThreads, 1)
+flash_bwd512_grads_kernel(const __grid_constant__ CUtensorMap mp,
+                          const __grid_constant__ CUtensorMap mds,
+                          const __grid_constant__ CUtensorMap mq,
+                          const __grid_constant__ CUtensorMap mk,
+                          const __grid_constant__ CUtensorMap mdo,
+                          bf16* __restrict__ dq, bf16* __restrict__ dk,
+                          bf16* __restrict__ dv, int T, int H, int bh0, float scale) {
+  using L = GradLayout;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = align1024(smem_raw);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + L::bar);
+  uint64_t* empty = full + L::kStages;
+  const int m0 = blockIdx.x * kT, which = blockIdx.y / 2, n0 = (blockIdx.y % 2) * 256;
+  const int g = blockIdx.z, bh = bh0 + g, b = bh / H, h = bh % H;
+  const int steps = T / 64;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < L::kStages; ++s) {
+      mbar_init(full + s, 1);
+      mbar_init(empty + s, kConsumers);
+    }
+    fence_mbar_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= kConsumers) {
+    reg_dealloc<40>();
+    if (threadIdx.x == kConsumers) {
+      const CUtensorMap* ma = which == 0 ? &mp : &mds;
+      const CUtensorMap* mb = which == 0 ? &mdo : which == 1 ? &mq : &mk;
+      for (int i = 0; i < steps; ++i) {
+        const int s = i % L::kStages, r0 = 64 * i;
+        unsigned char* st = smem + s * L::stage;
+        mbar_wait(empty + s, ((i / L::kStages) & 1) ^ 1);
+        mbar_expect_tx(full + s, L::stage);
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          // dV, dK: scratch rows (queries) r0.., columns (keys) m0 + 64 j..;
+          // dQ: scratch rows (queries) m0 + 64 j.., columns (keys) r0..
+          if (which < 2)
+            tma_load_4d(st + L::a + j * kBox, ma, full + s, m0 + 64 * j, 0, r0, g);
+          else
+            tma_load_4d(st + L::a + j * kBox, ma, full + s, r0, 0, m0 + 64 * j, g);
+        }
+#pragma unroll
+        for (int n = 0; n < 4; ++n)
+          tma_load_4d(st + L::b + n * kBox, mb, full + s, n0 + 64 * n, h, r0, b);
+      }
+    }
+  } else {
+    reg_alloc<232>();
+    const int w = threadIdx.x / 128, t = threadIdx.x % 128;
+    const int r0 = 16 * (t / 32) + (t % 32) / 4, cq = 2 * (t % 4);
+    float acc[4][32];
+    if (which < 2)
+      grad_mainloop<1>(acc, smem, full, empty, steps, w);
+    else
+      grad_mainloop<0>(acc, smem, full, empty, steps, w);
+    bf16* out = which == 0 ? dv : which == 1 ? dk : dq;
+    const float f = which == 0 ? 1.f : scale;
+    const size_t row_stride = size_t(H) * 512;
+    bf16* row = out + (size_t(b) * T * H + h) * 512 + size_t(m0 + 64 * w + r0) * row_stride + n0;
+#pragma unroll
+    for (int n = 0; n < 4; ++n)
+#pragma unroll
+      for (int j = 0; j < 32; j += 2) {
+        const int r = (j >> 1) & 1, c = 64 * n + 8 * (j / 4) + cq;
+        *reinterpret_cast<uint32_t*>(row + 8 * r * row_stride + c) =
+            pack_bf16(acc[n][j] * f, acc[n][j + 1] * f);
+      }
+  }
+}
+
+// D = 512 in groups of `group` batch*head pairs: the D_i pre-pass, then per
+// group phase 1 into the bf16 scratch (P, then dS: 2 x group x T x T) and
+// phase 2 out of it.
+int launch_512(const bf16* q, const bf16* k, const bf16* v, const bf16* o,
+               const float* lse, const bf16* dout, float* delta, bf16* scratch,
+               bf16* dq, bf16* dk, bf16* dv, int B, int T, int H, int group,
+               float scale, cudaStream_t s) {
+  constexpr int D = 512;
+  if (T % kT != 0 || scratch == nullptr || group <= 0) return int(cudaErrorInvalidValue);
   cudaError_t err = launch_delta(o, dout, delta, B, T, H, D, s);
   if (err != cudaSuccess) return int(err);
-
-  using LK = DkvLayout<DP, QD, KD>;
-  auto dkv = flash_bwd_dkv_kernel<DP, QD, KD>;
-  if ((err = prepare(dkv, LK::bytes)) != cudaSuccess) return int(err);
-  dkv<<<dim3(T / KD, B * H), kThreads, LK::bytes, s>>>(q, k, v, dout, lse, delta,
-                                                       dk, dv, T, H, D, scale);
-  if ((err = cudaGetLastError()) != cudaSuccess) return int(err);
-
-  using LQ = DqLayout<DP, QQ, KQ>;
-  auto dqk = flash_bwd_dq_kernel<DP, QQ, KQ>;
-  if ((err = prepare(dqk, LQ::bytes)) != cudaSuccess) return int(err);
-  dqk<<<dim3(T / QQ, B * H), kThreads, LQ::bytes, s>>>(q, k, v, dout, lse, delta,
-                                                       dq, T, H, D, scale);
-  return int(cudaGetLastError());
+  // phase 1 reads 128-row boxes of q, k, v, dO; phase 2 64-row boxes of q,
+  // k, dO and 64 x 64 boxes of the scratch, mapped as (group, T, 1, T)
+  CUtensorMap m1[4], m2[3], ms[2];
+  const bf16* src1[4] = {q, k, v, dout};
+  const bf16* src2[3] = {q, k, dout};
+  for (int i = 0; i < 4; ++i) {
+    const int e = btnh_map(&m1[i], src1[i], B, T, H, D, 64, kT, CU_TENSOR_MAP_SWIZZLE_128B);
+    if (e != 0) return e;
+  }
+  for (int i = 0; i < 3; ++i) {
+    const int e = btnh_map(&m2[i], src2[i], B, T, H, D, 64, 64, CU_TENSOR_MAP_SWIZZLE_128B);
+    if (e != 0) return e;
+  }
+  bf16* p_scr = scratch;
+  bf16* ds_scr = scratch + size_t(group) * T * T;
+  for (int i = 0; i < 2; ++i) {
+    const int e = btnh_map(&ms[i], i ? ds_scr : p_scr, group, T, 1, T, 64, 64,
+                           CU_TENSOR_MAP_SWIZZLE_128B);
+    if (e != 0) return e;
+  }
+  if ((err = prepare(flash_bwd512_scores_kernel, ScoreLayout::bytes)) != cudaSuccess ||
+      (err = prepare(flash_bwd512_grads_kernel, GradLayout::bytes)) != cudaSuccess)
+    return int(err);
+  const float scale_log2 = scale * kLog2e;
+  for (int bh0 = 0; bh0 < B * H; bh0 += group) {
+    const int n = B * H - bh0 < group ? B * H - bh0 : group;
+    flash_bwd512_scores_kernel<<<dim3(T / kT, T / kT, n), kMainThreads, ScoreLayout::bytes,
+                                 s>>>(m1[0], m1[1], m1[2], m1[3], lse, delta, p_scr, ds_scr,
+                                      T, H, bh0, scale_log2);
+    if ((err = cudaGetLastError()) != cudaSuccess) return int(err);
+    flash_bwd512_grads_kernel<<<dim3(T / kT, 6, n), kMainThreads, GradLayout::bytes, s>>>(
+        ms[0], ms[1], m2[0], m2[1], m2[2], dq, dk, dv, T, H, bh0, scale);
+    if ((err = cudaGetLastError()) != cudaSuccess) return int(err);
+  }
+  return 0;
 }
 
 }  // namespace
 
 // q, k, v, o, dout, dq, dk, dv: contiguous (B, T, H, D) bf16 on the device,
 // 16-byte aligned; lse: (B, H, T) fp32 from flash_attn_fwd; delta: (B, H, T)
-// fp32 scratch; dq_acc: (B, H, T, D) fp32 scratch filled with zeros (D <= 80;
-// unused, and may be null, at D = 512). D % 8 == 0 and D <= 80, or
-// D == 512; T % 128 == 0. Returns cudaGetLastError() after the last launch
-// (0 on success).
+// fp32 scratch. D % 8 == 0 and D <= 80: scratch is a (B, H, T, D) fp32 dQ
+// sum filled with zeros and group is unused; D == 512: scratch holds 2 x
+// group x T x T bf16 (P and dS of `group` batch*head pairs at a time, 1 <=
+// group). T % 128 == 0. Returns cudaGetLastError() after the last launch (0
+// on success).
 extern "C" int flash_attn_bwd(const void* q, const void* k, const void* v,
                               const void* o, const void* lse, const void* dout,
-                              void* delta, void* dq_acc, void* dq, void* dk,
-                              void* dv, int B, int T, int H, int D, float scale,
-                              void* stream) {
+                              void* delta, void* scratch, void* dq, void* dk,
+                              void* dv, int B, int T, int H, int D, int group,
+                              float scale, void* stream) {
   if (D <= 0 || D % 8 != 0 || (D > 80 && D != 512)) return int(cudaErrorInvalidValue);
   auto c = [](const void* p) { return static_cast<const bf16*>(p); };
   auto m = [](void* p) { return static_cast<bf16*>(p); };
   const float* l = static_cast<const float*>(lse);
   float* dl = static_cast<float*>(delta);
-  float* acc = static_cast<float*>(dq_acc);
+  float* acc = static_cast<float*>(scratch);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (D <= 64)
     return launch_main<64>(c(q), c(k), c(v), c(o), l, c(dout), dl, acc, m(dq),
@@ -700,6 +773,6 @@ extern "C" int flash_attn_bwd(const void* q, const void* k, const void* v,
   if (D <= 80)
     return launch_main<80>(c(q), c(k), c(v), c(o), l, c(dout), dl, acc, m(dq),
                            m(dk), m(dv), B, T, H, D, scale, s);
-  return launch_wmma<512, 32, 16, 32, 16>(c(q), c(k), c(v), c(o), l, c(dout), dl,
-                                          m(dq), m(dk), m(dv), B, T, H, D, scale, s);
+  return launch_512(c(q), c(k), c(v), c(o), l, c(dout), dl, m(scratch), m(dq), m(dk),
+                    m(dv), B, T, H, group, scale, s);
 }

@@ -27,8 +27,14 @@ FLASH_ATTN_FWD = CudaKernel(
     + [ctypes.c_float, ctypes.c_void_p])
 FLASH_ATTN_BWD = CudaKernel(
     "flash_attn_bwd.cu", "flash_attn_bwd",
-    [ctypes.c_void_p] * 11 + [ctypes.c_int] * 4
+    [ctypes.c_void_p] * 11 + [ctypes.c_int] * 5
     + [ctypes.c_float, ctypes.c_void_p])
+# At D = 512 the backward keeps the bf16 probabilities P and score gradients
+# dS of a group of (batch, head) pairs in device memory, 2 x group x T^2
+# values; a group holds as many pairs as keep one matrix within this many
+# values (64 MB), so a call splits into groups only where B H T^2 passes it.
+# The train step's (16, 1024, 1, 512) takes one group: 64 MB of scratch.
+BWD512_SCRATCH_ELEMS = 1 << 25
 
 
 def attention_plain(q: torch.Tensor, k: torch.Tensor,
@@ -118,17 +124,22 @@ def flash_attention_bwd(q, k, v, o, lse, do):
         raise ValueError("flash_attention_bwd: lse must be a contiguous "
                          f"({B}, {H}, {T}) float32 tensor on {q.device}")
     delta = torch.empty_like(lse)
-    # D <= 80: the fp32 (B, H, T, D) sum that every key tile adds its dQ
-    # part into; D = 512 computes dQ in a kernel of its own
-    dq_acc = (torch.zeros(B, H, T, D, device=q.device, dtype=torch.float32)
-              if D <= 80 else None)
+    if D <= 80:
+        # the fp32 (B, H, T, D) sum that every key tile adds its dQ part into
+        group = 0
+        scratch = torch.zeros(B, H, T, D, device=q.device,
+                              dtype=torch.float32)
+    else:
+        # P and dS of ``group`` (batch, head) pairs at a time, bf16
+        group = max(1, min(B * H, BWD512_SCRATCH_ELEMS // (T * T)))
+        scratch = torch.empty(2, group, T, T, device=q.device,
+                              dtype=torch.bfloat16)
     dq, dk, dv = (torch.empty_like(q) for _ in range(3))
     FLASH_ATTN_BWD.launch(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                           o.data_ptr(), lse.data_ptr(), do.data_ptr(),
-                          delta.data_ptr(),
-                          0 if dq_acc is None else dq_acc.data_ptr(),
+                          delta.data_ptr(), scratch.data_ptr(),
                           dq.data_ptr(), dk.data_ptr(),
-                          dv.data_ptr(), B, T, H, D, D ** -0.5,
+                          dv.data_ptr(), B, T, H, D, group, D ** -0.5,
                           torch.cuda.current_stream(q.device).cuda_stream)
     return dq, dk, dv
 

@@ -52,6 +52,7 @@ from prometheus_torch.ops.gaussian import (composite_tiles,
 from prometheus_torch.ops.gaussian.compositor import (
     COMPOSITE_BWD, COMPOSITE_FWD, composite_tiles_bwd_plain_counted,
     composite_tiles_plain_counted)
+from prometheus_torch.ops.gaussian.projection import ALPHA_CUTOFF, MAX_ALPHA
 
 # kernel A's shapes on the flagship paths, (B, T, H, D): generate's U-Net,
 # VAE mid blocks and DiT, and the stage-1 train step's DiT forward
@@ -61,8 +62,8 @@ PATH_SHAPES = [(16, 1024, 5, 64), (2, 2048, 10, 64), (2, 512, 20, 64),
 # the shapes the stage-1 train step differentiates (DiT, VAE decoder mid)
 TRAIN_SHAPES = [(4, 1024, 16, 72), (16, 1024, 1, 512)]
 # A-bwd's D <= 64 variant, which no train step of the port reaches yet (the
-# U-Net's head dim)
-BWD_SHAPES = TRAIN_SHAPES + [(2, 512, 20, 64)]
+# U-Net's head dim), and D = 512 at the GS decoder's 8 latents
+BWD_SHAPES = TRAIN_SHAPES + [(2, 512, 20, 64), (8, 1024, 1, 512)]
 
 
 @pytest.fixture
@@ -395,3 +396,273 @@ def test_composite_bwd_kernel_matches_plain_on_card(rng):
         scale = float(ref[:, r].abs().max())
         assert float((out[:, r] - ref[:, r]).abs().max()) <= 1e-4 * scale
     assert float(out[:, 10:].abs().max()) == 0.0
+
+
+def splat_worklists(rng, counts, cap=1024, grid_w=4, tiles_per_view=8,
+                    scales=(0.5, 6.0), opacity=(0.05, 1.0)):
+    """Packed worklists ``(T, 16, cap)`` of random splats around each tile:
+    means within 8 pixels of the tile, covariances of ``scales`` pixel
+    scales at random angles (the conic is the inverse), opacity in
+    ``opacity``, opacity 0 past each tile's count."""
+    n_t = len(counts)
+    local = np.arange(n_t) % tiles_per_view
+    org = np.stack([(local % grid_w) * 16, (local // grid_w) * 16], 1)
+    data = np.zeros((n_t, 16, cap), np.float32)
+    mean = org[:, :, None] + rng.uniform(-8, 24, size=(n_t, 2, cap))
+    sx, sy = (rng.uniform(*scales, size=(n_t, cap)) for _ in range(2))
+    th = rng.uniform(0, np.pi, size=(n_t, cap))
+    cs, sn = np.cos(th), np.sin(th)
+    # conic = R diag(1 / s^2) R^T
+    a = cs ** 2 / sx ** 2 + sn ** 2 / sy ** 2
+    c = sn ** 2 / sx ** 2 + cs ** 2 / sy ** 2
+    b = cs * sn * (1 / sx ** 2 - 1 / sy ** 2)
+    data[:, 0:2] = mean
+    data[:, 2], data[:, 3], data[:, 4] = a, b, c
+    data[:, 5:8] = rng.uniform(0, 1, size=(n_t, 3, cap))
+    data[:, 8] = rng.uniform(*opacity, size=(n_t, cap))
+    data[:, 9] = rng.uniform(1, 5, size=(n_t, cap))
+    data[:, 8] *= np.arange(cap)[None, :] < np.asarray(counts)[:, None]
+    return torch.from_numpy(data), torch.tensor(counts, dtype=torch.int32)
+
+
+def splat_alpha(blk, px, py):
+    """alpha ``(P, C)`` of the slots of ``blk (16, C)`` at pixels ``(P,)``,
+    as the plain versions compute it."""
+    dx, dy = px[:, None] - blk[0], py[:, None] - blk[1]
+    sigma = 0.5 * (blk[2] * dx * dx + blk[4] * dy * dy) + blk[3] * dx * dy
+    raw = blk[8] * torch.exp(-torch.clamp_max(sigma, 30.0))
+    keep = (raw >= ALPHA_CUTOFF) & (sigma >= 0)
+    return torch.where(keep, torch.clamp_max(raw, MAX_ALPHA),
+                       torch.zeros_like(raw)), dx, dy
+
+
+def reduce_scatter(x):
+    """The kernel's warp butterfly on ``(warps, 32 lanes, 32 values)``:
+    at each step a lane keeps half of its values (the upper half where its
+    lane bit h is set) and adds its partner's copy of that half. Returns
+    ``(warps, 32)``: lane L holds value L summed over the warp."""
+    lanes = torch.arange(32)
+    for h in (16, 8, 4, 2, 1):
+        up = ((lanes & h) != 0)[None, :, None]
+        lo, hi = x[..., :h], x[..., h:2 * h]
+        send, keep = torch.where(up, lo, hi), torch.where(up, hi, lo)
+        x = keep + send[:, lanes ^ h]
+    return x[..., 0]
+
+
+def emulate_composite_bwd(data, gout, counts, grid_w, tiles_per_view,
+                          pixels=2, sub=16, group=3):
+    """Kernel C's order of arithmetic on the CPU, fp32. A thread owns
+    ``pixels`` vertically adjacent pixels of one column; pass 1 keeps each
+    pixel's transmittance at every ``sub``-instance boundary; pass 2 walks
+    each sub-chunk back to front from its checkpoint, adds a thread's
+    pixels' ten gradients in order, sums each group of ``group`` instances
+    over the warp by the butterfly, and adds the warps' partials of a
+    128-instance chunk in warp order."""
+    n_t, _, cap = data.shape
+    threads = 256 // pixels
+    warps = threads // 32
+    tid = torch.arange(threads)
+    col = tid % 16
+    rows = pixels * (tid // 16)[:, None] + torch.arange(pixels)   # (thr, P)
+    out = torch.zeros(n_t, 16, cap)
+    groups = [list(range(sub - 1 - g, max(sub - 1 - g - group, -1), -1))
+              for g in range(0, sub, group)]
+    for t in range(n_t):
+        n_ch = (min(int(counts[t]), cap) + 127) // 128
+        local = t % tiles_per_view
+        x0, y0 = float((local % grid_w) * 16), float((local // grid_w) * 16)
+        px = (x0 + col.float() + 0.5)[:, None].expand(threads, pixels)
+        py = y0 + rows.float() + 0.5
+        g = gout[t][:, rows * 16 + col[:, None]]                # (8, thr, P)
+
+        def alpha(j):
+            a, dx, dy = splat_alpha(data[t, :, j:j + 1], px.reshape(-1),
+                                    py.reshape(-1))
+            return tuple(z.reshape(threads, pixels) for z in (a, dx, dy))
+
+        ckpt, T = {}, torch.ones(threads, pixels)
+        for c in range(n_ch):
+            for sb in range(128 // sub):
+                ckpt[c, sb] = T
+                for jj in range(sub):
+                    T = T * (1 - alpha(c * 128 + sb * sub + jj)[0])
+        S = torch.zeros(threads, pixels)
+        for c in reversed(range(n_ch)):
+            part = torch.zeros(warps, 10, 128)
+            for sb in reversed(range(128 // sub)):
+                Tc, al, tin = ckpt[c, sb], [], []
+                for jj in range(sub):
+                    al.append(alpha(c * 128 + sb * sub + jj))
+                    tin.append(Tc)
+                    Tc = Tc * (1 - al[-1][0])
+                for members in groups:
+                    v = torch.zeros(threads, 32)
+                    for k, jj in enumerate(members):
+                        j = c * 128 + sb * sub + jj
+                        sp = data[t, :, j]
+                        (a, dx, dy), ti = al[jj], tin[jj]
+                        for q in range(pixels):
+                            aq, tq, Sq = a[:, q], ti[:, q], S[:, q]
+                            on, live = aq > 0, (aq > 0) & (aq < MAX_ALPHA)
+                            w = aq * tq
+                            u = (sp[5] * g[0, :, q] + sp[6] * g[1, :, q]
+                                 + sp[7] * g[2, :, q] + sp[9] * g[3, :, q]
+                                 + g[4, :, q])
+                            da = u * tq - Sq / torch.clamp_min(1 - aq, 1e-3)
+                            dsig = -aq * da
+                            dxq, dyq = dx[:, q], dy[:, q]
+                            dop = (da * (aq / torch.clamp_min(sp[8], 1e-8))
+                                   if sp[8] > 0 else torch.zeros_like(da))
+                            grads = [-dsig * (sp[2] * dxq + sp[3] * dyq),
+                                     -dsig * (sp[4] * dyq + sp[3] * dxq),
+                                     dsig * 0.5 * dxq * dxq, dsig * dxq * dyq,
+                                     dsig * 0.5 * dyq * dyq, g[0, :, q] * w,
+                                     g[1, :, q] * w, g[2, :, q] * w, dop,
+                                     g[3, :, q] * w]
+                            for r, gr in enumerate(grads):
+                                keep = live if r in (0, 1, 2, 3, 4, 8) else on
+                                v[:, 10 * k + r] += torch.where(
+                                    keep, gr, torch.zeros_like(gr))
+                            S[:, q] = torch.where(on, Sq + u * w, Sq)
+                    sums = reduce_scatter(v.reshape(warps, 32, 32))
+                    for lane in range(10 * len(members)):
+                        jj = members[lane // 10]
+                        part[:, lane % 10, sb * sub + jj] = sums[:, lane]
+            acc = torch.zeros(10, 128)
+            for w in range(warps):
+                acc = acc + part[w]
+            out[t, :10, c * 128:(c + 1) * 128] = acc
+    return out
+
+
+# the worklist counts a tile can end on: none, one slot, either side of
+# the 128-instance chunk, a long list and a full one (K = 1024)
+EDGE_COUNTS = [0, 1, 127, 128, 129, 1000, 1024]
+
+
+# small splats that leave most pairs below the cutoff, and large opaque ones
+# that saturate the transmittance and reach the 0.999 clamp
+@pytest.mark.parametrize("scales,opacity", [((0.5, 6.0), (0.05, 1.0)),
+                                            ((4.0, 20.0), (0.9, 1.0))])
+def test_composite_bwd_emulation_matches_plain(rng, scales, opacity):
+    # kernel C's reduction order (per-thread pixel sums, the warp butterfly
+    # over three instances, the warps' partials added once a chunk) against
+    # the plain version, 1e-4 of each gradient row's largest value
+    data, counts = splat_worklists(rng, EDGE_COUNTS, scales=scales,
+                                   opacity=opacity)
+    gout = torch.from_numpy(rng.normal(size=(len(EDGE_COUNTS), 8, 256))
+                            .astype(np.float32))
+    gout[:, 5:] = 0.0
+    ref = composite_tiles_bwd_plain(data, gout, counts, 4, 8)
+    got = emulate_composite_bwd(data, gout, counts, 4, 8)
+    for r in range(10):
+        scale = float(ref[:, r].abs().max())
+        assert scale > 0
+        assert float((got[:, r] - ref[:, r]).abs().max()) <= 1e-4 * scale
+    assert float(got[:, 10:].abs().max()) == 0.0
+
+
+def emulate_flash_bwd_512(q, k, v, o, lse, do, group, tile=128,
+                          drop_tile=None, drop_delta=False):
+    """A-bwd's two-phase D = 512 arithmetic on the CPU, BTNH bf16 inputs ->
+    bf16 ``(dq, dk, dv)`` as fp32. D_i from kernel A's bf16 output; phase 1
+    per ``group`` (batch, head) pairs and 128 x 128 tile: fp32 S and dP, P
+    = exp2(S scale log2 e - lse log2 e), dS = P (dP - D_i), both rounded to
+    bf16 into the scratch; phase 2: dV = P^T dO, dK = scale dS^T Q, dQ =
+    scale dS K in fp32 from the scratch. ``drop_tile`` (one 128 x 128 tile
+    of the scratch left unwritten) and ``drop_delta`` are faults the
+    tolerance must catch."""
+    B, T, H, D = q.shape
+    heads = lambda x: x.float().permute(0, 2, 1, 3).reshape(B * H, T, D)
+    qh, kh, vh, oh, doh = (heads(x) for x in (q, k, v, o, do))
+    scale = D ** -0.5
+    log2e = math.log2(math.e)
+    lse2 = lse.reshape(B * H, T) * log2e
+    delta = (doh * oh).sum(-1)
+    grads = [torch.zeros(B * H, T, D) for _ in range(3)]
+    for g0 in range(0, B * H, group):
+        sl = slice(g0, min(g0 + group, B * H))
+        p = torch.zeros(sl.stop - g0, T, T)
+        ds = torch.zeros_like(p)
+        for i, q0 in enumerate(range(0, T, tile)):
+            for kt, k0 in enumerate(range(0, T, tile)):
+                if drop_tile == (i, kt):
+                    continue
+                rq, rk = slice(q0, q0 + tile), slice(k0, k0 + tile)
+                s = qh[sl, rq] @ kh[sl, rk].transpose(1, 2)
+                dp = doh[sl, rq] @ vh[sl, rk].transpose(1, 2)
+                pt = torch.exp2(s * (scale * log2e) - lse2[sl, rq, None])
+                dst = pt * (dp - (0.0 if drop_delta else delta[sl, rq, None]))
+                p[:, rq, rk] = pt.bfloat16().float()
+                ds[:, rq, rk] = dst.bfloat16().float()
+        grads[0][sl] = scale * ds @ kh[sl]
+        grads[1][sl] = scale * ds.transpose(1, 2) @ qh[sl]
+        grads[2][sl] = p.transpose(1, 2) @ doh[sl]
+    return [x.reshape(B, H, T, D).permute(0, 2, 1, 3).bfloat16().float()
+            for x in grads]
+
+
+# (B, T, H) at D = 512, with the (batch, head) pairs of a group: one, a
+# ragged split of 4 into 3 + 1, and all
+@pytest.mark.parametrize("group", [1, 3, 4])
+def test_flash_bwd_512_two_phase_emulation_matches_plain(rng, group):
+    shape = (2, 256, 2, 512)
+    q, k, v, do = (torch.from_numpy(rng.normal(size=shape)
+                                    .astype(np.float32)).bfloat16()
+                   for _ in range(4))
+    qf, kf, vf = q.float(), k.float(), v.float()
+    lse = attention_lse_plain(qf, kf)
+    o_ref = attention_plain(qf, kf, vf)
+    ref = flash_attention_bwd_plain(qf, kf, vf, o_ref, lse, do.float())
+    # the kernel reads kernel A's bf16 output for D_i
+    o = o_ref.bfloat16()
+    err = lambda got: [float((a - r).abs().max() / r.abs().max())
+                       for a, r in zip(got, ref)]
+    assert max(err(emulate_flash_bwd_512(q, k, v, o, lse, do, group))) <= 5e-3
+    assert min(err(emulate_flash_bwd_512(q, k, v, o, lse, do, group,
+                                         drop_tile=(1, 0)))) >= 0.1
+    assert min(err(emulate_flash_bwd_512(q, k, v, o, lse, do, group,
+                                         drop_delta=True))[:2]) >= 0.1
+
+
+@pytest.mark.gpu
+def test_composite_bwd_kernel_edge_counts_on_card(rng):
+    need_card()
+    data, counts = splat_worklists(rng, EDGE_COUNTS)
+    gout = torch.from_numpy(rng.normal(size=(len(EDGE_COUNTS), 8, 256))
+                            .astype(np.float32))
+    data, counts, gout = data.cuda(), counts.cuda(), gout.cuda()
+    before = COMPOSITE_BWD.launches
+    out = composite_tiles_bwd(data, gout, counts, 4, 8)
+    torch.cuda.synchronize()
+    assert COMPOSITE_BWD.launches == before + 1
+    ref = composite_tiles_bwd_plain(data, gout, counts, 4, 8)
+    for r in range(10):
+        scale = float(ref[:, r].abs().max())
+        assert float((out[:, r] - ref[:, r]).abs().max()) <= 1e-4 * scale
+    assert float(out[:, 10:].abs().max()) == 0.0
+    for t, n in enumerate(EDGE_COUNTS):
+        walked = (n + 127) // 128 * 128
+        assert not bool(out[t, :, walked:].any())
+
+
+@pytest.mark.gpu
+def test_flash_bwd_512_groups_on_card(monkeypatch):
+    # a cap of 3 T^2 values a matrix runs (8, 1024, 1, 512) in groups of 3,
+    # 3 and 2 (batch, head) pairs: the same gradients as one group
+    need_card()
+    from prometheus_torch.ops import attention
+    shape = (8, 1024, 1, 512)
+    g = torch.Generator(device="cuda").manual_seed(1)
+    q, k, v, do = (torch.randn(shape, generator=g, device="cuda",
+                               dtype=torch.bfloat16) for _ in range(4))
+    o, lse = flash_attention_fwd(q, k, v, with_lse=True)
+    whole = flash_attention_bwd(q, k, v, o, lse, do)
+    monkeypatch.setattr(attention, "BWD512_SCRATCH_ELEMS", 3 * 1024 * 1024)
+    before = FLASH_ATTN_BWD.launches
+    grouped = flash_attention_bwd(q, k, v, o, lse, do)
+    torch.cuda.synchronize()
+    assert FLASH_ATTN_BWD.launches == before + 1
+    for a, b in zip(grouped, whole):
+        assert torch.equal(a, b)
