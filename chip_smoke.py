@@ -53,13 +53,14 @@ Phases (any failure ends the script with a non-zero exit):
    idle share, the port's kernels by launched kernel, and kernel C's time
    in that step both ways: by the profiler and by CUDA events around its
    launch;
-9. hold kernel C against its plain version once more on the worklists and
-   upstream gradients of the last counted train step, with its bound
-   counted from the pairs they walk and keep;
+9. hold kernels B and C against their plain versions once more on the
+   worklists (and, for C, the upstream gradients) of the last counted
+   train step, each timed with its bound counted from the pairs they walk
+   and keep;
 10. print the ``kernels`` JSON line (each kernel's ``launches`` from the
     path that runs it: ``generate`` for A and B, the train step for A-bwd
-    and C; C's entry also holds its check on the train step's worklists)
-    and, last, the ``ok`` line.
+    and C; B's and C's entries also hold their checks on the train step's
+    worklists) and, last, the ``ok`` line.
 
 Long logs (the ``nvcc -Xptxas -v`` reports, the profiles' kernel tables,
 the per-shape attention rows) go to ``build/chip_smoke/``.
@@ -379,52 +380,66 @@ def bin_scene(cams, scene, size: int, cap: int):
     return data, counts
 
 
-def phase_compositor() -> dict:
-    import torch
-
+def check_composite_fwd(label: str, data, counts, grid_w: int,
+                        tpv: int) -> dict:
+    """Hold kernel B against its plain version on one batch of worklists:
+    RGB and alpha absolute, depth relative to the largest depth, rows 5-7
+    exactly zero, the times, and the bound counted from the instances this
+    data walks and the pairs it keeps."""
     from prometheus_torch.ops.gaussian.compositor import (
-        COMPOSITE_FWD, composite_tiles, composite_tiles_plain_counted)
+        composite_tiles, composite_tiles_plain_counted)
 
-    size, cap, views, n = 512, 1024, 8, 524288
-    data, counts = bin_scene(*synthetic_scene(n, views, size, seed=2), size,
-                             cap)
-    grid_w, tpv = size // 16, (size // 16) ** 2
     out = composite_tiles(data, counts, grid_w, tpv)
-    torch.cuda.synchronize()
     ref, processed, kept = composite_tiles_plain_counted(data, counts, grid_w,
                                                          tpv)
     rows = [0, 1, 2, 4]                            # rgb and alpha
     err = float((out[:, rows] - ref[:, rows]).abs().max())
     depth_scale = float(ref[:, 3].abs().max().clamp_min(1.0))
     err_d = float((out[:, 3] - ref[:, 3]).abs().max()) / depth_scale
+    pad_zero = float(out[:, 5:].abs().max()) == 0.0
+    del out, ref
     ms = median_ms(lambda: composite_tiles(data, counts, grid_w, tpv))
     plain_ms = cuda_time_ms(
         lambda: composite_tiles_plain_counted(data, counts, grid_w, tpv),
         iters=2, warmup=1)
     walked, kept = float(processed.sum()) * 256, float(kept.sum())
-    n_t = data.shape[0]
+    n_t, _, cap = data.shape
     nbytes = 4.0 * (10 * float(processed.sum()) + n_t + n_t * 8 * 256)
     bound_ms, bound_by = bound(
         COMP_OPS_WALKED * walked + COMP_OPS_KEPT * kept, PEAK_FP32_FLOPS,
         nbytes)
-    ok = err <= COMP_TOL and err_d <= COMP_TOL
-    log(f"kernel B ({n_t} tiles x K {cap}, {n} gaussians, {views} views "
-        f"at {size}^2; {int(counts.sum())} instances binned, "
-        f"{int(processed.sum())} walked; {walked:.0f} pixel pairs walked, "
-        f"{kept:.0f} kept ({kept / max(walked, 1.0):.4f})): max_abs_err "
-        f"rgb/alpha {err:.3e} depth/max_depth {err_d:.3e} "
-        f"(tol {COMP_TOL:g}) ms {ms:.4f} plain_ms {plain_ms:.4f} "
-        f"bound_ms {bound_ms:.4f} ({bound_by}) {'ok' if ok else 'FAIL'}")
+    ok = err <= COMP_TOL and err_d <= COMP_TOL and pad_zero
+    log(f"kernel B ({label}; {n_t} tiles x K {cap}, {int(counts.sum())} "
+        f"instances binned, {int(processed.sum())} walked; {walked:.0f} "
+        f"pixel pairs walked, {kept:.0f} kept "
+        f"({kept / max(walked, 1.0):.4f})): max_abs_err rgb/alpha {err:.3e} "
+        f"depth/max_depth {err_d:.3e} (tol {COMP_TOL:g}); rows 5-7 zero "
+        f"{pad_zero}; ms {ms:.4f} plain_ms {plain_ms:.4f} bound_ms "
+        f"{bound_ms:.4f} ({bound_by}, {bound_ms / ms:.3f} of it) "
+        f"{'ok' if ok else 'FAIL'}")
     if not ok:
-        raise RuntimeError(f"kernel B disagrees with its plain version: "
-                           f"{err}, {err_d} > {COMP_TOL}")
+        raise RuntimeError(f"kernel B disagrees with its plain version "
+                           f"({label}): {err}, {err_d} > {COMP_TOL}, or "
+                           f"nonzero rows 5-7")
+    return dict(max_abs_err=err, depth_err=err_d, ms=ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=bound_by, shape=[n_t, 16, cap],
+                pairs_walked=walked, pairs_kept=kept)
+
+
+def phase_compositor() -> dict:
+    from prometheus_torch.ops.gaussian.compositor import COMPOSITE_FWD
+
+    size, cap, views, n = 512, 1024, 8, 524288
+    data, counts = bin_scene(*synthetic_scene(n, views, size, seed=2), size,
+                             cap)
+    res = check_composite_fwd(
+        f"synthetic scene, {n} gaussians, {views} views at {size}^2", data,
+        counts, size // 16, (size // 16) ** 2)
     COMPOSITE_FWD.launches = 0
     return dict(name="composite_fwd", route="cuda",
                 source="prometheus_torch/csrc/composite_fwd.cu",
                 replaces="prometheus_tpu/ops/gaussian/pallas_kernel.py:117",
-                max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                bound_by=bound_by, library_ms=None,
-                shape=[n_t, 16, cap])
+                library_ms=None, **res)
 
 
 def phase_attention_bwd() -> dict:
@@ -944,10 +959,14 @@ def main() -> int:
         + " ms")
     del trainer
     torch.cuda.empty_cache()
-    # kernel C once more, on the worklists of the last counted train step
+    # kernels B and C once more, on the worklists (and, for C, the upstream
+    # gradients) of the last counted train step
+    data, _, counts, grid_w, tpv, _ = c_args
+    entry_b["on_train_step"] = check_composite_fwd(
+        "the train step's own worklists", data, counts, grid_w, tpv)
     entry_c["on_train_step"] = check_composite_bwd(
         "the train step's own worklists and upstream gradients", *c_args)
-    del c_args
+    del c_args, data, counts
     for entry, launches in ((entry_a, gen_launches), (entry_b, gen_launches),
                             (entry_abwd, train_launches),
                             (entry_c, train_launches)):
@@ -961,7 +980,9 @@ def main() -> int:
             "launches_by_path")
     entries = (entry_a, entry_b, entry_abwd, entry_c)
     kernels = [{k: e[k] for k in keys} for e in entries]
-    kernels[-1]["on_train_step"] = entry_c["on_train_step"]
+    for kern, entry in zip(kernels, entries):
+        if "on_train_step" in entry:
+            kern["on_train_step"] = entry["on_train_step"]
     (LOG_DIR / "attention_shapes.json").write_text(json.dumps(dict(
         fwd=entry_a["shapes"], bwd=entry_abwd["shapes"]), indent=1))
     print(card, flush=True)

@@ -33,11 +33,11 @@
 // kPix = 2 vertically adjacent pixels of one column (128 threads a tile),
 // shares each instance's loads between them and adds their gradients in
 // registers before any reduction across lanes.
-// - Staging: the 10 used rows of a 128-instance chunk are copied by
-//   cp.async into shared memory instance-major (12 floats an instance, read
-//   back as two float4 and a float2 broadcast loads), double-buffered: the
-//   next chunk (pass 1) or the previous one (pass 2) is in flight while the
-//   current one is walked.
+// - Staging (splat_stage.cuh): the 10 used rows of a 128-instance chunk are
+//   copied by cp.async into shared memory instance-major (12 floats an
+//   instance, read back as two float4 and a float2 broadcast loads),
+//   double-buffered: the next chunk (pass 1) or the previous one (pass 2)
+//   is in flight while the current one is walked.
 // - Pass 1 walks the chunks front to back and keeps each pixel's
 //   transmittance at every 16-instance boundary in shared memory (K / 16 x
 //   256 floats, 64 KB at K = 1024), in place of the TPU kernel's log-space
@@ -59,40 +59,24 @@
 // whose footprint misses the warp's rows (slower in every pairing).
 #include <cuda_runtime.h>
 #include <math.h>
-#include <stdint.h>
 
 #include "splat_alpha.cuh"
+#include "splat_stage.cuh"
 
 namespace {
 
 constexpr int kTile = 16;
 constexpr int kPixels = kTile * kTile;
-constexpr int kChunk = 128;
 constexpr int kPix = 2;  // pixels a thread: (col, 2 r) and (col, 2 r + 1)
 constexpr int kThreads = kPixels / kPix;
 constexpr int kWarps = kThreads / 32;
 constexpr int kSub = 16;  // instances between transmittance checkpoints
 constexpr int kSubs = kChunk / kSub;
-constexpr int kChannels = 16;
-constexpr int kUsed = 10;
-constexpr int kStride = 12;  // floats of one staged instance
 constexpr int kGroup = 3;    // instances a butterfly sums
 constexpr int kGroups = (kSub + kGroup - 1) / kGroup;
 constexpr float kMaxAlpha = 0.999f;
 constexpr float kAlphaCutoff = 1.0f / 255.0f;
 constexpr unsigned kFull = 0xffffffffu;
-
-// one staged instance: the data rows 0-9
-struct Splat {
-  float mx, my, a, b, c, r, g, bl, op, z;
-};
-
-__device__ __forceinline__ Splat load_splat(const float* s) {
-  const float4 x = *reinterpret_cast<const float4*>(s);
-  const float4 y = *reinterpret_cast<const float4*>(s + 4);
-  const float2 z = *reinterpret_cast<const float2*>(s + 8);
-  return {x.x, x.y, x.z, x.w, y.x, y.y, y.z, y.w, z.x, z.y};
-}
 
 __device__ __forceinline__ float alpha_at(const Splat& s, float px, float py) {
   const float dx = px - s.mx;
@@ -100,26 +84,6 @@ __device__ __forceinline__ float alpha_at(const Splat& s, float px, float py) {
   const float sigma = splat_sigma(s.a, s.b, s.c, dx, dy);
   const float raw = splat_alpha_raw(s.op, sigma);
   return (raw >= kAlphaCutoff && sigma >= 0.f) ? fminf(raw, kMaxAlpha) : 0.f;
-}
-
-__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;" ::"r"(
-                   static_cast<uint32_t>(__cvta_generic_to_shared(dst))),
-               "l"(src)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_group 0;" ::: "memory");
-}
-
-// Start copying rows 0-9 of the 128 slots of chunk c into s, instance-major.
-__device__ __forceinline__ void stage_async(float* s, const float* d, int K, int c) {
-  for (int i = threadIdx.x; i < kUsed * kChunk; i += kThreads) {
-    const int row = i / kChunk, j = i % kChunk;
-    cp_async4(s + j * kStride + row, d + size_t(row) * K + c * kChunk + j);
-  }
-  asm volatile("cp.async.commit_group;" ::: "memory");
 }
 
 // One step of a reduce-scatter over the warp: a lane holds 2 H values and
@@ -195,11 +159,11 @@ composite_bwd_kernel(const float* __restrict__ data, const float* __restrict__ g
   float T[kPix];
 #pragma unroll
   for (int q = 0; q < kPix; ++q) T[q] = 1.f;
-  stage_async(stage, d, K, 0);
+  stage_async<kThreads>(stage, d, K, 0);
   for (int c = 0; c < n_chunks; ++c) {
     cp_async_wait_all();
     __syncthreads();  // chunk c is in; every thread is done with chunk c - 1
-    if (c + 1 < n_chunks) stage_async(stage + ((c + 1) & 1) * kChunk * kStride, d, K, c + 1);
+    if (c + 1 < n_chunks) stage_async<kThreads>(stage + ((c + 1) & 1) * kChunk * kStride, d, K, c + 1);
     const float* s = stage + (c & 1) * kChunk * kStride;
     for (int sb = 0; sb < kSubs; ++sb) {
 #pragma unroll
@@ -221,7 +185,7 @@ composite_bwd_kernel(const float* __restrict__ data, const float* __restrict__ g
   for (int c = n_chunks - 1; c >= 0; --c) {
     cp_async_wait_all();
     __syncthreads();  // chunk c is in; the last chunk's partials are summed
-    if (c > 0) stage_async(stage + ((c - 1) & 1) * kChunk * kStride, d, K, c - 1);
+    if (c > 0) stage_async<kThreads>(stage + ((c - 1) & 1) * kChunk * kStride, d, K, c - 1);
     const float* s = stage + (c & 1) * kChunk * kStride;
     for (int sb = kSubs - 1; sb >= 0; --sb) {
       float al[kSub][kPix], tin[kSub][kPix];

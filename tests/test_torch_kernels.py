@@ -14,7 +14,11 @@ plain version in fp32 on the same inputs, upcast, ``max|out - ref| / max|ref|
 ~0.03-0.5 and the error is scaled by the reference's largest value; the
 kernel's bf16 rounding of probabilities and output accounts for ~2.5e-3 of
 it, a dropped K/V tile for ~0.4. Kernel B (fp32 throughout, the same
-stopping rule) ``atol 1e-4`` on composited RGB and alpha. A-bwd (bf16 in
+stopping rule) ``atol 1e-4`` on composited RGB and alpha, and on depth
+relative to the largest depth: an emulation of its walk (its warp skip
+changes no bit) stays within ~1e-6 of the plain version, while a dropped
+partial chunk, a falloff term from the wrong pixel column or a reach that
+skips kept pairs lands above 1e-3. A-bwd (bf16 in
 and out, P and dS rounded to bf16 for the tensor-core products) against the
 fp32 plain backward on the same inputs, upcast, with the plain forward's
 output and log-sum-exp, ``max|out - ref| / max|ref| <= 1e-2`` per gradient:
@@ -563,6 +567,114 @@ def test_composite_bwd_emulation_matches_plain(rng, scales, opacity):
     assert float(got[:, 10:].abs().max()) == 0.0
 
 
+def emulate_composite_fwd(data, counts, grid_w, tiles_per_view,
+                          margin=0.01, drop_partial=False,
+                          wrong_column=False):
+    """Kernel B's walk on the CPU, fp32, every tile at once. A thread owns
+    two vertically adjacent pixels of one column, a warp an 8 x 8 quarter
+    of the tile. For each instance a thread takes dx, (a dx) dx and b dx
+    once for its column and dy, (c dy) dy once per row, finishes sigma per
+    pixel, and updates each pixel's T in order; a warp skips the instance
+    when every pixel's sigma exceeds its reach ln(255 opacity) + ``margin``
+    (``None``: no skip). A tile stops after a 128-instance chunk once every
+    pixel's T is <= 1e-4. ``drop_partial`` (the slots of a last, partial
+    chunk not walked), ``wrong_column`` (the column terms taken from the
+    column to the right) and a negative ``margin`` (a reach that skips kept
+    pairs) are faults the tolerance must catch."""
+    n_t, _, cap = data.shape
+    tid = torch.arange(128)
+    warp, lane = tid // 32, tid % 32
+    col = 8 * (warp % 2) + lane % 8                               # (thr,)
+    rows = (8 * (warp // 2) + 2 * (lane // 8))[:, None] + torch.arange(2)
+    local = torch.arange(n_t) % tiles_per_view
+    px = (((local % grid_w) * 16)[:, None] + col + 0.5).float()   # (T, thr)
+    py = (((local // grid_w) * 16)[:, None, None] + rows + 0.5).float()
+    px_terms = px + 1 if wrong_column else px
+    counts = torch.clamp_max(counts.to(torch.int64), cap)
+    end = counts // 128 * 128 if drop_partial else counts
+    state = torch.zeros(6, n_t, 128, 2)      # r, g, b, depth, acc and T
+    state[5] = 1.0
+    active = end > 0
+    for c0 in range(0, cap, 128):
+        if not bool(active.any()):
+            break
+        for jj in range(min(128, cap - c0)):
+            on = active & (c0 + jj < end)
+            if not bool(on.any()):
+                break
+            sp = data[:, :10, c0 + jj, None]                      # (T, 10, 1)
+            dxc = px_terms - sp[:, 0]                             # (T, thr)
+            xx, bx = sp[:, 2] * dxc * dxc, sp[:, 3] * dxc
+            dy = py - sp[:, 1, None]                              # (T, thr, 2)
+            yy = sp[:, 4, None] * dy * dy
+            sigma = 0.5 * (xx[..., None] + yy) + bx[..., None] * dy
+            if margin is not None:
+                reach = torch.log(sp[:, 8] * 255.0) + margin      # (T, 1)
+                reach = torch.where(reach >= 30.0,
+                                    torch.full_like(reach, math.inf), reach)
+                near = ~(sigma > reach[..., None])
+                on = on[:, None] & near.reshape(n_t, 4, 64).any(-1) \
+                    .repeat_interleave(32, 1)                     # (T, thr)
+            else:
+                on = on[:, None].expand(n_t, 128)
+            alpha = torch.clamp_max(
+                sp[:, 8, None] * torch.exp(-torch.clamp_max(sigma, 30.0)),
+                MAX_ALPHA)
+            keep = (alpha >= ALPHA_CUTOFF) & (sigma >= 0) & on[..., None]
+            a = torch.where(keep, alpha, torch.zeros_like(alpha))
+            w = a * state[5]
+            for k, ch in enumerate((5, 6, 7, 9)):
+                state[k] += w * sp[:, ch, None]
+            state[4] += w
+            state[5] = state[5] * (1.0 - a)
+        active &= (c0 + 128 < end) & (state[5].flatten(1).amax(1) > 1e-4)
+    out = torch.zeros(n_t, 8, 16, 16)
+    for q in range(2):
+        out[:, :5, rows[:, q], col] = state[:5, :, :, q].transpose(0, 1)
+    return out.reshape(n_t, 8, 256)
+
+
+# kernel B's scenes: the two kinds of splats of kernel C's emulation test,
+# and an opaque one whose long worklists stop mid-way (after 640 and 512 of
+# 1000 and 1024 instances)
+COMPOSITE_SCENES = [((0.5, 6.0), (0.05, 1.0)), ((4.0, 20.0), (0.9, 1.0)),
+                    ((1.0, 3.0), (0.99, 1.0))]
+
+
+def composite_error(out, ref):
+    """Kernel B's error: RGB and alpha absolute, depth relative to the
+    largest depth."""
+    rows = [0, 1, 2, 4]
+    err = float((out[:, rows] - ref[:, rows]).abs().max())
+    scale = max(float(ref[:, 3].abs().max()), 1.0)
+    return max(err, float((out[:, 3] - ref[:, 3]).abs().max()) / scale)
+
+
+@pytest.mark.parametrize("scales,opacity", COMPOSITE_SCENES)
+def test_composite_emulation_matches_plain(rng, scales, opacity):
+    # kernel B's walk (a thread's two pixels with shared column terms, T per
+    # pixel in order, the warp skip by each instance's reach, the tile-level
+    # stop) against the plain version at 1e-4, at the worklist counts a
+    # tile can end on; the skip changes no bit
+    data, counts = splat_worklists(rng, EDGE_COUNTS, scales=scales,
+                                   opacity=opacity)
+    ref, processed, _ = composite_tiles_plain_counted(data, counts, 4, 8)
+    got = emulate_composite_fwd(data, counts, 4, 8)
+    assert composite_error(got, ref) <= 1e-4
+    assert torch.equal(got, emulate_composite_fwd(data, counts, 4, 8,
+                                                  margin=None))
+    assert float(ref[:, 4].max()) > 0.99
+    if opacity[0] >= 0.99:   # the stop fires inside the long worklists
+        assert (processed[-2:] < counts[-2:]).all()
+        assert (processed[-2:] > 128).all()
+    faults = [dict(drop_partial=True), dict(wrong_column=True)]
+    if scales[0] < 4.0:   # larger splats reach every warp: nothing skips
+        faults.append(dict(margin=-1.0))
+    for fault in faults:
+        got = emulate_composite_fwd(data, counts, 4, 8, **fault)
+        assert composite_error(got, ref) > 1e-3, fault
+
+
 def emulate_flash_bwd_512(q, k, v, o, lse, do, group, tile=128,
                           drop_tile=None, drop_delta=False):
     """A-bwd's two-phase D = 512 arithmetic on the CPU, BTNH bf16 inputs ->
@@ -645,6 +757,22 @@ def test_composite_bwd_kernel_edge_counts_on_card(rng):
     for t, n in enumerate(EDGE_COUNTS):
         walked = (n + 127) // 128 * 128
         assert not bool(out[t, :, walked:].any())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("scales,opacity", COMPOSITE_SCENES)
+def test_composite_kernel_edge_counts_on_card(rng, scales, opacity):
+    need_card()
+    data, counts = splat_worklists(rng, EDGE_COUNTS, scales=scales,
+                                   opacity=opacity)
+    data, counts = data.cuda(), counts.cuda()
+    before = COMPOSITE_FWD.launches
+    out = composite_tiles(data, counts, 4, 8)
+    torch.cuda.synchronize()
+    assert COMPOSITE_FWD.launches == before + 1
+    ref = composite_tiles_plain(data, counts, 4, 8)
+    assert composite_error(out, ref) <= 1e-4
+    assert float(out[:, 5:].abs().max()) == 0.0
 
 
 @pytest.mark.gpu
