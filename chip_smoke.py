@@ -34,36 +34,63 @@ Phases (any failure ends the script with a non-zero exit):
 5. print per-stage times, peak memory and the launch counters (set to 0
    just before ``generate`` and read just after), and check that A and B
    ran and every output is finite and of the expected shape;
-6. profile one more (warm) ``generate`` with ``torch.profiler``: device time
+6. run ``generate`` without cameras on the same pipeline: TrajDiT with 100
+   DDIM steps for a 29-camera trajectory, cut to 8 sparse views, image 256,
+   4 Euler steps, render 512. Prints its stage times (``trajectory``
+   among them), its launch counters (set to 0 just before, read just
+   after) and the csort pairs its binning dropped; checks the trajectory
+   (finite, rotations orthonormal to 1e-3, focal lengths > 0, the sparse
+   views at stride 4), that A and B ran, and every output;
+7. run the CLI (``prometheus_torch.inference.run``) in the process on the
+   same pipeline, one prompt at its defaults: 100 TrajDiT steps, 100 Euler
+   steps, 8 views, render 512 and a 120-frame orbit video at tile capacity
+   512. Prints the wall seconds of each ``generate`` stage, of the exports
+   and of the video beside the card's name and power limit, and the launch
+   counters of the run and of the video; checks that every file is written
+   and not empty, that the ``.ply`` reads back as many gaussians as were
+   exported and that the ``.splat`` holds 32 bytes a gaussian;
+8. profile one more (warm) ``generate`` with ``torch.profiler``: device time
    by kernel class, the device's idle share, and the port's kernels by
    launched kernel (A-bwd's D_i pre-pass, main kernel and dQ conversion at
    D <= 80, its scores and grads kernels at D = 512; C);
-7. build the flagship stage-1 trainer (``prometheus_torch.train``: GS
+9. hold kernel B against its plain version on one orbit chunk's worklists
+   (8 frames of phase 6's scene at 512x512, tile capacity 512), and B and C
+   on a trained-statistics scene (``make_trained_stats_scene``: 524,288
+   gaussians in front of phase 6's first view, its 8 views at 512x512,
+   tile capacity 1024 and 512; C with random upstream gradients), each
+   timed with its bound counted from the pairs it walks and keeps, and
+   print ``psnr_vs_exact`` of the production render at capacity 1024 and
+   512 on that scene;
+10. build the flagship stage-1 trainer (``prometheus_torch.train``: GS
    decoder at full width, bf16-mixed, AdamW, EMA; random weights from a
    seed) and run 3 train steps on synthetic batches of 4 scenes x (4 input
    + 4 novel views) at 256x256 (the batch drops to 2, then 1, only if 4
    does not fit, and says so). Prints cold and warm step seconds, the
    forward, backward, AdamW and EMA stages in device-timeline ms (CUDA
    events recorded at their boundaries, no synchronisation added), loss,
-   ``grad_norm``, peak memory and the launch counters of one
+   ``grad_norm``, peak memory, the csort pairs dropped by the last step's
+   binning and the launch counters of one
    warm step (set to 0 just before it, read just after; A, A-bwd, B and C
    must each be > 0), and checks that loss and gradients are finite and
    that the parameters and the EMANorm magnitudes moved;
-8. profile one more warm train step: device time by kernel class, the
+11. profile one more warm train step: device time by kernel class, the
    idle share, the port's kernels by launched kernel, and kernel C's time
    in that step both ways: by the profiler and by CUDA events around its
    launch;
-9. hold kernels B and C against their plain versions once more on the
+12. hold kernels B and C against their plain versions once more on the
    worklists (and, for C, the upstream gradients) of the last counted
    train step, each timed with its bound counted from the pairs they walk
    and keep;
-10. print the ``kernels`` JSON line (each kernel's ``launches`` from the
-    path that runs it: ``generate`` for A and B, the train step for A-bwd
-    and C; B's and C's entries also hold their checks on the train step's
-    worklists) and, last, the ``ok`` line.
+13. print the ``kernels`` JSON line (each kernel's ``launches`` from the
+    path that runs it: ``generate`` without cameras for A and B, the train
+    step for A-bwd and C, and every path's counts under
+    ``launches_by_path``; B's and C's entries also hold their checks on
+    the other worklists, B's its launches per orbit video and the
+    ``psnr_vs_exact`` readings) and, last, the ``ok`` line.
 
 Long logs (the ``nvcc -Xptxas -v`` reports, the profiles' kernel tables,
-the per-shape attention rows) go to ``build/chip_smoke/``.
+the per-shape attention rows) and the CLI's exports go to
+``build/chip_smoke/``.
 """
 from __future__ import annotations
 
@@ -153,6 +180,10 @@ STEPS, SEED = 4, 0
 # repeats of ``cuda_time_ms`` whose median is each kernel's and each
 # yardstick's time: SDPA's backward read 0.206-0.556 ms over single readings
 REPEATS = 5
+# TrajDiT's DDIM steps (the reference's 100), the orbit video's tile
+# capacity and frames a compositor launch (the JAX package's display path),
+# and the tile samples of psnr_vs_exact (bench.py's on-chip count)
+TRAJ_STEPS, VIDEO_CAPACITY, VIDEO_CHUNK, PSNR_TILES = 100, 512, 8, 32
 # train steps of the stage-1 phase (one cold, two warm) and the batch sizes
 # tried in turn (the configuration's 4, cut only if it does not fit)
 TRAIN_STEPS, TRAIN_BATCHES = 3, (4, 2, 1)
@@ -397,6 +428,7 @@ def check_composite_fwd(label: str, data, counts, grid_w: int,
     depth_scale = float(ref[:, 3].abs().max().clamp_min(1.0))
     err_d = float((out[:, 3] - ref[:, 3]).abs().max()) / depth_scale
     pad_zero = float(out[:, 5:].abs().max()) == 0.0
+    alpha_mean = float(ref[:, 4].mean())
     del out, ref
     ms = median_ms(lambda: composite_tiles(data, counts, grid_w, tpv))
     plain_ms = cuda_time_ms(
@@ -412,7 +444,8 @@ def check_composite_fwd(label: str, data, counts, grid_w: int,
     log(f"kernel B ({label}; {n_t} tiles x K {cap}, {int(counts.sum())} "
         f"instances binned, {int(processed.sum())} walked; {walked:.0f} "
         f"pixel pairs walked, {kept:.0f} kept "
-        f"({kept / max(walked, 1.0):.4f})): max_abs_err rgb/alpha {err:.3e} "
+        f"({kept / max(walked, 1.0):.4f}); alpha mean {alpha_mean:.4f}): "
+        f"max_abs_err rgb/alpha {err:.3e} "
         f"depth/max_depth {err_d:.3e} (tol {COMP_TOL:g}); rows 5-7 zero "
         f"{pad_zero}; ms {ms:.4f} plain_ms {plain_ms:.4f} bound_ms "
         f"{bound_ms:.4f} ({bound_by}, {bound_ms / ms:.3f} of it) "
@@ -423,7 +456,7 @@ def check_composite_fwd(label: str, data, counts, grid_w: int,
                            f"nonzero rows 5-7")
     return dict(max_abs_err=err, depth_err=err_d, ms=ms, plain_ms=plain_ms,
                 bound_ms=bound_ms, bound_by=bound_by, shape=[n_t, 16, cap],
-                pairs_walked=walked, pairs_kept=kept)
+                pairs_walked=walked, pairs_kept=kept, alpha_mean=alpha_mean)
 
 
 def phase_compositor() -> dict:
@@ -608,7 +641,8 @@ def phase_generate(steps: int, seed: int) -> dict:
     pipe = build_pipeline(small=False, device="cuda", dtype=torch.bfloat16,
                           seed=seed)
     torch.cuda.synchronize()
-    n_params = sum(p.numel() for m in (pipe.mvldm.model, pipe.gsdecoder)
+    n_params = sum(p.numel() for m in (pipe.mvldm.model, pipe.gsdecoder,
+                                       pipe.traj.model)
                    for p in m.parameters())
     log(f"phase build_pipeline: {time.perf_counter() - t0:.1f} s, "
         f"{n_params / 1e9:.3f}B parameters")
@@ -631,6 +665,16 @@ def phase_generate(steps: int, seed: int) -> dict:
     log(f"generate ({steps} Euler steps, 8 views, image 256, render 512): "
         f"{wall:.3f} s; stages: {stages}")
     log(f"peak memory {peak / 2**30:.2f} GiB; launches {launches}")
+
+    check_generate_outputs(result, launches)
+    return launches, pipe, kw
+
+
+def check_generate_outputs(result: dict, launches: dict) -> None:
+    """Every output of a flagship ``generate`` (8 views, image 256, render
+    512) finite and of its shape, renders and masks in range, and kernels
+    A and B launched."""
+    import torch
 
     expect = {
         "latents_pred": (1, 8, 8, 32, 32),
@@ -661,7 +705,226 @@ def phase_generate(steps: int, seed: int) -> dict:
             raise RuntimeError(f"{name} was not launched by generate")
     log(f"outputs finite and of the expected shapes; mask mean "
         f"{float(mask.mean()):.4f}")
-    return launches, pipe, kw
+
+
+def hold_last_binning() -> dict:
+    """Keep the arguments of the latest csort binning (``bin_views``, which
+    each compositor launch of a render runs first) in the returned dict,
+    without changing what the binning computes."""
+    from prometheus_torch.ops.gaussian import composite_grad
+
+    bin_views = composite_grad.bin_views
+    last = {}
+
+    def held(proj, colors, opacities, img_h, img_w, tile_size, capacity,
+             max_tiles):
+        last.update(proj=proj, img_h=img_h, img_w=img_w,
+                    tile_size=tile_size, max_tiles=max_tiles)
+        return bin_views(proj, colors, opacities, img_h, img_w, tile_size,
+                         capacity, max_tiles)
+
+    composite_grad.bin_views = held
+    return last
+
+
+def binning_stats(last: dict) -> dict:
+    """``tile_overflow_stats`` of the latest binning held in ``last``,
+    summed over its views: the exact count of (gaussian, window tile) pairs
+    no csort tier emitted, the JAX-equal tier overflow, and the pairs
+    needed."""
+    from prometheus_torch.ops.gaussian import Projected, tile_overflow_stats
+
+    proj, ts = last["proj"], last["tile_size"]
+    out = dict(csort_pairs_dropped=0, csort_tier_overflow=0,
+               instances_needed=0.0)
+    for v in range(proj.mean2d.shape[0]):
+        view = Projected(*(None if f is None else f[v].detach()
+                           for f in proj))
+        st = tile_overflow_stats(view, ts, last["img_w"] // ts,
+                                 last["img_h"] // ts, last["max_tiles"])
+        for k in out:
+            out[k] += st[k]
+    out["views"] = int(proj.mean2d.shape[0])
+    last.clear()
+    return out
+
+
+def check_trajectory(dense, cams) -> None:
+    """A finite ``(1, 29, 18)`` trajectory with orthonormal rotations and
+    positive focal lengths, cut to its 8 sparse views at stride 4."""
+    import torch
+
+    if tuple(dense.shape) != (1, 29, 18) or not bool(
+            torch.isfinite(dense).all()):
+        raise RuntimeError(f"trajectory: bad tensor {tuple(dense.shape)}")
+    rot = dense[..., :12].reshape(1, 29, 3, 4)[..., :3]
+    orth = float((rot @ rot.transpose(-1, -2)
+                  - torch.eye(3, device=rot.device)).abs().max())
+    focal = float(dense[..., 12:14].min())
+    if orth > 1e-3 or focal <= 0:
+        raise RuntimeError(f"trajectory: |R R^T - I| {orth}, smallest focal "
+                           f"length {focal}")
+    if not torch.equal(cams, dense[:, ::4][:, :8]):
+        raise RuntimeError("the sparse views are not the trajectory's "
+                           "cameras 0, 4, ..., 28")
+    log(f"trajectory: 29 cameras finite, max |R R^T - I| {orth:.2e}, "
+        f"focal lengths {focal:.2f}..{float(dense[..., 12:14].max()):.2f} "
+        f"px, sparse views = cameras 0, 4, ..., 28")
+
+
+def phase_generate_trajectory(pipe, steps: int, seed: int, binning: dict):
+    """Flagship ``generate`` without cameras: TrajDiT, 8 sparse views."""
+    import torch
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    image_size = pipe.mvldm.model.image_size
+    zero_counts()
+    t0 = time.perf_counter()
+    result = pipe.generate(PROMPT, generator=g, num_views=8,
+                           num_inference_steps=steps,
+                           num_traj_steps=TRAJ_STEPS, image_size=image_size,
+                           render_size=512, render_tile_capacity=1024)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_counts()
+    stages = " ".join(f"{k} {v * 1e3:.1f}ms"
+                      for k, v in result["timings"].items())
+    log(f"generate without cameras ({TRAJ_STEPS} TrajDiT steps, 8 views, "
+        f"image {image_size}, {steps} Euler steps, render 512): {wall:.3f} s;"
+        f" stages: {stages}; launches {launches}")
+    check_trajectory(result["dense_cameras"], result["cameras"])
+    check_generate_outputs(result, launches)
+    stats = binning_stats(binning)
+    log(f"csort of generate's render ({stats['views']} views at 512^2): "
+        f"csort_pairs_dropped {stats['csort_pairs_dropped']} of "
+        f"{stats['instances_needed']:.0f} pairs needed, csort_tier_overflow "
+        f"{stats['csort_tier_overflow']}")
+    return launches, result, stats
+
+
+def phase_cli(pipe, card: str) -> dict:
+    """The CLI at its defaults on the built pipeline, one prompt."""
+    from prometheus_torch import inference
+    from prometheus_torch.utils.gs_io import load_ply
+
+    out_root = LOG_DIR / "cli"
+    shutil.rmtree(out_root, ignore_errors=True)
+    args = inference.parse_args(["--prompt", PROMPT,
+                                 "--export_dir", str(out_root)])
+    video = {}
+    render_video = pipe.render_orbit_video
+
+    def counted(*a, **kw):
+        before = read_counts()
+        frames = render_video(*a, **kw)
+        video.update({k: v - before[k] for k, v in read_counts().items()})
+        return frames
+
+    pipe.render_orbit_video = counted
+    zero_counts()
+    t0 = time.perf_counter()
+    try:
+        (rec,) = inference.run(args, pipe)
+    finally:
+        del pipe.render_orbit_video
+    wall = time.perf_counter() - t0
+    launches = read_counts()
+    out = Path(rec["out_dir"])
+    names = ["gs_renders.png", "mv_images.png", "mv_depths.png",
+             "gaussians.ply", "gaussians.splat", "meta.json"]
+    names.append(Path(rec["paths"]["video"]).name)
+    sizes = {n: (out / n).stat().st_size if (out / n).exists() else 0
+             for n in names}
+    if min(sizes.values()) <= 0:
+        raise RuntimeError(f"CLI: a file is missing or empty: {sizes}")
+    n = rec["n_gaussians"]
+    n_ply = load_ply(str(out / "gaussians.ply"))[0].shape[1]
+    if n_ply != n or sizes["gaussians.splat"] != 32 * n:
+        raise RuntimeError(f"CLI: {n} gaussians exported, the .ply holds "
+                           f"{n_ply}, the .splat {sizes['gaussians.splat']}"
+                           " bytes")
+    chunks = math.ceil(args.num_video_frames / VIDEO_CHUNK)
+    if video["composite_fwd"] != chunks:
+        raise RuntimeError(f"the orbit video launched kernel B "
+                           f"{video['composite_fwd']} times, not {chunks}")
+    stages = " ".join(f"{k} {v:.3f}s" for k, v in rec["timings"].items())
+    exports = " ".join(f"{k} {v:.3f}s"
+                       for k, v in rec["export_seconds"].items())
+    log(f"CLI ({args.num_traj_steps} TrajDiT steps, {args.num_steps} Euler "
+        f"steps, {args.num_views} views, render {args.render_size}, "
+        f"{args.num_video_frames}-frame video at capacity {VIDEO_CAPACITY}) "
+        f"on {card}: wall {wall:.3f} s; generate {rec['generate_seconds']:.3f}"
+        f" s ({stages}); exports {exports}; files " + ", ".join(
+            f"{k} {v}" for k, v in sizes.items())
+        + f" bytes; {n} gaussians; launches {launches}; launches of the "
+        f"video {video}")
+    return dict(wall_s=wall, generate_s=rec["generate_seconds"],
+                stages_s=rec["timings"], exports_s=rec["export_seconds"],
+                launches=launches, video_launches=video, files=sizes)
+
+
+def scene_tuple(gaussians):
+    """A batched gaussian tuple -> ``bin_scene``'s ``(xyz, colors,
+    opacity, scales, quats)`` of its first scene, float32."""
+    xyz, feat, opac, scales, quats = (g[0].float() for g in gaussians)
+    return xyz, feat[:, 0], opac[:, 0], scales, quats
+
+
+def phase_scene_checks(result, entry_b: dict, entry_c: dict,
+                       binning: dict) -> None:
+    """Kernel B on one orbit chunk of the generated scene; B and C on the
+    trained-statistics scene at capacity 1024 and 512, with
+    ``psnr_vs_exact`` of the production render at both."""
+    import torch
+
+    from prometheus_torch.ops.gaussian.quality import (
+        make_trained_stats_scene, psnr_vs_exact)
+    from prometheus_torch.utils import sample_from_dense_cameras
+
+    dense = result["dense_cameras"][:1].float()
+    t = torch.linspace(0, 1, 120, device=dense.device)[None]
+    chunk = sample_from_dense_cameras(dense, t)[0, :VIDEO_CHUNK]
+    data, counts = bin_scene(chunk, scene_tuple(result["gaussians"]), 512,
+                             VIDEO_CAPACITY)
+    entry_b["on_orbit_chunk"] = check_composite_fwd(
+        f"one orbit chunk: {VIDEO_CHUNK} frames of the generated scene at "
+        f"512^2", data, counts, 32, 1024)
+    del data, counts
+
+    # the trajectory's 8 views with their intrinsics at 512^2
+    cams = result["cameras"][0].float().clone()
+    cams[:, 12:18] *= 512.0 / cams[:, 16:17]
+    g = torch.Generator(device="cuda").manual_seed(5)
+    n = 524288
+    ts = make_trained_stats_scene(cams[None], g, n_gaussians=n)
+    scene = scene_tuple(ts)
+    one = tuple(x[0] for x in ts)
+    entry_b["on_trained_stats"], entry_c["on_trained_stats"] = {}, {}
+    entry_b["psnr_vs_exact_db"] = {}
+    for cap in (1024, 512):
+        label = (f"trained-statistics scene, {n} gaussians, 8 views at "
+                 f"512^2, K {cap}")
+        data, counts = bin_scene(cams, scene, 512, cap)
+        stats = binning_stats(binning)
+        log(f"csort of the {label}: csort_pairs_dropped "
+            f"{stats['csort_pairs_dropped']} of "
+            f"{stats['instances_needed']:.0f} pairs needed")
+        entry_b["on_trained_stats"][cap] = check_composite_fwd(
+            label, data, counts, 32, 1024)
+        gout = torch.randn(data.shape[0], 8, 256, generator=g, device="cuda")
+        gout[:, 5:] = 0.0
+        entry_c["on_trained_stats"][cap] = check_composite_bwd(
+            label, data, gout, counts, 32, 1024)
+        del data, counts, gout
+        t0 = time.perf_counter()
+        db = psnr_vs_exact(cams[0], one, g, tile_capacity=cap,
+                           n_sample_tiles=PSNR_TILES)
+        log(f"psnr_vs_exact on the trained-statistics scene, view 0 at "
+            f"512^2, capacity {cap}, {PSNR_TILES} tiles: {db:.2f} dB "
+            f"({time.perf_counter() - t0:.2f} s)")
+        if not math.isfinite(db):
+            raise RuntimeError(f"psnr_vs_exact at capacity {cap}: {db}")
+        entry_b["psnr_vs_exact_db"][cap] = db
 
 
 def kernel_class(name: str) -> str:
@@ -848,7 +1111,7 @@ def run_train_steps(trainer, marks, record) -> dict:
                 n_state=len(state_after))
 
 
-def phase_train(seed: int):
+def phase_train(seed: int, binning: dict):
     """The flagship stage-1 train step, 3 steps; the batch is cut to 2, then
     1, only if 4 does not fit in device memory."""
     import gc
@@ -868,6 +1131,7 @@ def phase_train(seed: int):
             f"{n_params / 1e9:.3f}B parameters (fp32), batch {batch}")
         try:
             res = run_train_steps(trainer, marks, record)
+            stats = binning_stats(binning)
             break
         except torch.cuda.OutOfMemoryError as e:
             log(f"train step at batch {batch} does not fit in device "
@@ -897,6 +1161,10 @@ def phase_train(seed: int):
         f"{res['launches']}; trained leaves moved {len(res['moved'])}/"
         f"{res['n_trained']}; EMANorm magnitudes moved "
         f"{len(res['state_moved'])}/{res['n_state']}")
+    log(f"csort of the last train step's render ({stats['views']} views at "
+        f"{cfg['render_size']}^2): csort_pairs_dropped "
+        f"{stats['csort_pairs_dropped']} of {stats['instances_needed']:.0f} "
+        f"pairs needed, csort_tier_overflow {stats['csort_tier_overflow']}")
     for st in res["steps"]:
         for k in ("loss", "grad_norm"):
             if not math.isfinite(st["metrics"][k]):
@@ -916,7 +1184,7 @@ def phase_train(seed: int):
     (LOG_DIR / "train_steps.json").write_text(json.dumps(dict(
         batch=batch, steps=res["steps"], peak_bytes=res["peak"],
         launches=res["launches"]), indent=1))
-    return trainer, marks, res["launches"], captured["args"]
+    return trainer, marks, res["launches"], captured["args"], stats
 
 
 def main() -> int:
@@ -939,15 +1207,23 @@ def main() -> int:
     log(f"torch {torch.__version__} cuda {torch.version.cuda} python "
         f"{sys.version.split()[0]}")
     phase_build()
+    binning = hold_last_binning()
     entry_a = phase_attention()
     entry_b = phase_compositor()
     entry_abwd = phase_attention_bwd()
     entry_c = phase_composite_bwd()
     gen_launches, pipe, kw = phase_generate(STEPS, SEED)
+    traj_launches, traj_result, gen_dropped = phase_generate_trajectory(
+        pipe, STEPS, SEED, binning)
+    cli = phase_cli(pipe, card)
     phase_profile(pipe, kw)
     del pipe
     torch.cuda.empty_cache()
-    trainer, marks, train_launches, c_args = phase_train(SEED)
+    phase_scene_checks(traj_result, entry_b, entry_c, binning)
+    del traj_result
+    torch.cuda.empty_cache()
+    trainer, marks, train_launches, c_args, train_dropped = phase_train(
+        SEED, binning)
     _, by_class = profile_run("warm train step", trainer.step,
                               "profile_train.json")
     # the same launch of kernel C read both ways: the profiler's device time
@@ -967,24 +1243,31 @@ def main() -> int:
     entry_c["on_train_step"] = check_composite_bwd(
         "the train step's own worklists and upstream gradients", *c_args)
     del c_args, data, counts
-    for entry, launches in ((entry_a, gen_launches), (entry_b, gen_launches),
+    paths = {"generate": gen_launches, "generate_trajectory": traj_launches,
+             "cli": cli["launches"], "train_step": train_launches}
+    for entry, launches in ((entry_a, traj_launches),
+                            (entry_b, traj_launches),
                             (entry_abwd, train_launches),
                             (entry_c, train_launches)):
         entry["launches"] = launches[entry["name"]]
-        entry["launches_by_path"] = {
-            "generate": gen_launches[entry["name"]],
-            "train_step": train_launches[entry["name"]]}
+        entry["launches_by_path"] = {p: c[entry["name"]]
+                                     for p, c in paths.items()}
+    entry_b["launches_per_orbit_video"] = cli["video_launches"][
+        "composite_fwd"]
+    log("csort_pairs_dropped: generate " + str(
+        gen_dropped["csort_pairs_dropped"]) + ", train step "
+        + str(train_dropped["csort_pairs_dropped"]))
     log(f"total {time.perf_counter() - t_start:.1f} s")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "shape",
             "launches_by_path")
+    extra = ("on_train_step", "on_orbit_chunk", "on_trained_stats",
+             "launches_per_orbit_video", "psnr_vs_exact_db")
     entries = (entry_a, entry_b, entry_abwd, entry_c)
-    kernels = [{k: e[k] for k in keys} for e in entries]
-    for kern, entry in zip(kernels, entries):
-        if "on_train_step" in entry:
-            kern["on_train_step"] = entry["on_train_step"]
+    kernels = [{k: e[k] for k in keys + extra if k in e} for e in entries]
     (LOG_DIR / "attention_shapes.json").write_text(json.dumps(dict(
         fwd=entry_a["shapes"], bwd=entry_abwd["shapes"]), indent=1))
+    (LOG_DIR / "cli.json").write_text(json.dumps(cli, indent=1))
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

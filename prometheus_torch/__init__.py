@@ -3,7 +3,8 @@ NVIDIA H100.
 
 The layout mirrors the JAX package so each module has an obvious
 counterpart (``utils/``, ``ops/``, ``ops/gaussian/``, ``models/``,
-``systems/``, ``parallel/``, ``pipeline.py``, ``train.py``). Every Pallas
+``systems/``, ``parallel/``, ``pipeline.py``, ``inference.py``,
+``train.py``). Every Pallas
 kernel of the JAX package is hand-written CUDA under ``csrc/``:
 
 - ``csrc/flash_attn_fwd.cu`` (kernel A) replaces the Pallas flash attention

@@ -1,0 +1,188 @@
+"""Text -> 3DGS scene CLI of the port (the JAX package's ``inference.py``).
+
+Runs TrajDiT -> sparse views -> MV-LDM sampling -> VAE decode -> GS decoder
+-> renders on one card (or on the CPU with ``--device cpu``) and writes, per
+prompt and sample, the JAX CLI's files: ``gs_renders.png``,
+``mv_images.png``, ``mv_depths.png``, ``gaussians.ply``,
+``gaussians.splat``, ``orbit.mp4`` (``orbit.gif`` where no mp4 writer is
+installed) and ``meta.json``.
+
+    python -m prometheus_torch.inference --prompt "a cozy cabin"
+    python -m prometheus_torch.inference --prompt "x" --small --device cpu \\
+        --num_steps 2 --num_traj_steps 4 --render_size 32 \\
+        --num_video_frames 4
+
+The weights are random (``pipeline.build_pipeline``, seed 0): checkpoint
+loading is not ported, and neither are ``--ckpt``, ``--ref_image``,
+``--refine``, ``--use_3d_mode_every_m_steps``, ``--sampler``,
+``--shard_views``, ``--cfg_interval_frac`` or guidance types other than
+``joint``, so argparse refuses them.
+
+Seeds: sample ``j`` of prompt ``i`` draws its trajectory and sampler noise
+from a ``torch.Generator`` seeded from ``(seed + i, j)``. The JAX CLI
+draws from ``PRNGKey(seed + i)`` folded with ``j``, so the two CLIs draw
+different noise from the same ``--seed``.
+
+``run(args, pipe)`` drives the CLI with a pipeline that is already built.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import time
+
+import numpy as np
+import torch
+
+from .models import CLIPTokenizer
+from .pipeline import build_pipeline
+from .utils import resolve_device
+from .utils.gs_io import export_gaussians
+from .utils.image import (colorize_depth, make_grid, postprocess_image,
+                          save_image, save_video)
+
+
+def parse_args(argv=None) -> argparse.Namespace:
+    p = argparse.ArgumentParser(
+        description="Text -> 3DGS scene on the PyTorch/CUDA port")
+    p.add_argument("--prompt", type=str, default=None)
+    p.add_argument("--prompt_file", type=str, default=None)
+    p.add_argument("--negative_prompt", type=str, default="")
+    p.add_argument("--export_dir", type=str, default="./exports")
+    p.add_argument("--num_steps", type=int, default=100)
+    p.add_argument("--num_traj_steps", type=int, default=100)
+    p.add_argument("--num_views", type=int, default=8)
+    p.add_argument("--guidance_scale", type=float, default=7.5)
+    p.add_argument("--guidance_type", type=str, default="joint",
+                   choices=["joint"])
+    p.add_argument("--cfg_rescale", type=float, default=0.7)
+    p.add_argument("--render_size", type=int, default=512)
+    p.add_argument("--image_size", type=int, default=512)
+    p.add_argument("--num_samples", type=int, default=1,
+                   help="independent samples per prompt")
+    p.add_argument("--num_video_frames", type=int, default=120)
+    p.add_argument("--fps", type=int, default=30)
+    p.add_argument("--no_video", action="store_true")
+    p.add_argument("--small", action="store_true",
+                   help="the reduced test widths")
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--bpe_vocab", type=str, default=None,
+                   help="CLIP BPE merges file (exact tokenization)")
+    p.add_argument("--device", type=str, default="cuda",
+                   help="'cuda' (default) or 'cpu'")
+    return p.parse_args(argv)
+
+
+def sample_generator(seed: int, j: int,
+                     device: torch.device) -> torch.Generator:
+    """The generator of sample ``j`` of the prompt whose seed is ``seed``."""
+    state = np.random.SeedSequence([seed, j]).generate_state(1, np.uint64)[0]
+    return torch.Generator(device=device).manual_seed(int(state))
+
+
+def export_result(result: dict, pipe, prompt: str, out_dir: str,
+                  args) -> tuple[dict, dict]:
+    """Write one scene's files; returns ``(paths, seconds per step)``."""
+    os.makedirs(out_dir, exist_ok=True)
+    paths, seconds = {}, {}
+    t0 = time.perf_counter()
+    paths["renders"] = os.path.join(out_dir, "gs_renders.png")
+    save_image(make_grid(postprocess_image(
+        result["images_gs_render"][0].float().cpu().numpy())),
+        paths["renders"])
+    paths["images_2d"] = os.path.join(out_dir, "mv_images.png")
+    save_image(make_grid(postprocess_image(
+        result["images_pred"][0].float().cpu().numpy())), paths["images_2d"])
+    paths["depths"] = os.path.join(out_dir, "mv_depths.png")
+    deps = result["depths_pred"][0, :, 0].float().cpu().numpy()
+    save_image(make_grid(colorize_depth(deps, 0.0, 1.0)), paths["depths"])
+    seconds["images"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    gaussians = tuple(g.float().cpu().numpy() for g in result["gaussians"])
+    export_gaussians(os.path.join(out_dir, "gaussians"), gaussians)
+    paths["ply"] = os.path.join(out_dir, "gaussians.ply")
+    paths["splat"] = os.path.join(out_dir, "gaussians.splat")
+    seconds["gaussians"] = time.perf_counter() - t0
+
+    if not args.no_video:
+        t0 = time.perf_counter()
+        frames = pipe.render_orbit_video(
+            result["gaussians"], result["dense_cameras"],
+            num_frames=args.num_video_frames, size=args.render_size)
+        seconds["video_render"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        paths["video"] = save_video(postprocess_image(frames.numpy()),
+                                    os.path.join(out_dir, "orbit.mp4"),
+                                    fps=args.fps)
+        seconds["video_write"] = time.perf_counter() - t0
+
+    with open(os.path.join(out_dir, "meta.json"), "w") as fp:
+        json.dump({"prompt": prompt, "paths": paths}, fp, indent=2)
+    return paths, seconds
+
+
+def prompts_of(args) -> list[str]:
+    prompts = [args.prompt] if args.prompt else []
+    if args.prompt_file:
+        with open(args.prompt_file) as fp:
+            prompts.extend(line.strip() for line in fp if line.strip())
+    if not prompts:
+        raise SystemExit("provide --prompt or --prompt_file")
+    return prompts
+
+
+def run(args, pipe=None) -> list[dict]:
+    """Generate and export every prompt's samples. ``pipe``: a pipeline
+    already built (its device is used), else one is built from ``args``.
+    Returns one record per scene: its directory, files, ``generate``'s
+    stage seconds, the export seconds and the wall seconds of
+    ``generate``."""
+    prompts = prompts_of(args)
+    if pipe is None:
+        device = resolve_device(args.device)
+        dtype = torch.bfloat16 if device.type == "cuda" else torch.float32
+        pipe = build_pipeline(small=args.small, device=device, dtype=dtype)
+        print("[inference] random weights (checkpoint loading is not ported)")
+    if args.bpe_vocab:
+        pipe.tokenizer = CLIPTokenizer(args.bpe_vocab)
+    records = []
+    for i, prompt in enumerate(prompts):
+        for j in range(max(1, args.num_samples)):
+            t0 = time.perf_counter()
+            result = pipe.generate(
+                prompt, generator=sample_generator(args.seed + i, j,
+                                                   pipe.device),
+                num_views=args.num_views,
+                num_inference_steps=args.num_steps,
+                num_traj_steps=args.num_traj_steps,
+                guidance_scale=args.guidance_scale,
+                guidance_type=args.guidance_type,
+                cfg_rescale=args.cfg_rescale,
+                render_size=args.render_size, image_size=args.image_size,
+                negative_text=args.negative_prompt)
+            dt = time.perf_counter() - t0
+            slug = "".join(c if c.isalnum() else "_"
+                           for c in prompt[:48]).strip("_")
+            out_dir = os.path.join(args.export_dir, f"{i:03d}_{slug}")
+            if args.num_samples > 1:
+                out_dir = os.path.join(out_dir, str(j))
+            paths, seconds = export_result(result, pipe, prompt, out_dir,
+                                           args)
+            n = int(result["gaussians"][0].shape[1])
+            print(f"[{i + 1}/{len(prompts)}] '{prompt}' sample {j} -> "
+                  f"{out_dir} ({dt:.1f}s)")
+            records.append(dict(out_dir=out_dir, paths=paths,
+                                timings=result["timings"],
+                                export_seconds=seconds, generate_seconds=dt,
+                                n_gaussians=n))
+    return records
+
+
+def main(argv=None) -> None:
+    run(parse_args(argv))
+
+
+if __name__ == "__main__":
+    main()

@@ -88,9 +88,12 @@ class CLIPTokenizer:
         else:
             warnings.warn(
                 "CLIPTokenizer constructed WITHOUT a merges file: using the "
-                "deterministic hash fallback (wrong token ids, right shapes)."
-                " Converted real text-encoder weights need the exact BPE: "
-                "pass bpe_path (bpe_simple_vocab_16e6.txt[.gz]).",
+                "hash fallback (wrong token ids, right shapes). Python salts "
+                "hash() per process, so the ids, and everything generated "
+                "from a prompt, change between processes unless "
+                "PYTHONHASHSEED is set. Converted real text-encoder weights "
+                "need the exact BPE: pass bpe_path "
+                "(bpe_simple_vocab_16e6.txt[.gz]).",
                 stacklevel=2)
 
     @property

@@ -1,6 +1,7 @@
-"""DiT primitives: adaLN blocks, the timestep embedder and sinusoid tables
-(``prometheus_tpu/models/dit.py``), as the GS decoder's cross-view DiT uses
-them (self-attention only, tanh-approximate gelu)."""
+"""DiT primitives: adaLN blocks, the timestep embedder, self- and
+cross-attention and sinusoid tables (``prometheus_tpu/models/dit.py``), as
+the GS decoder's cross-view DiT and TrajDiT use them (tanh-approximate gelu
+in both)."""
 from __future__ import annotations
 
 import numpy as np
@@ -54,6 +55,28 @@ class MultiHeadSelfAttention(nn.Module):
         d = c // self.num_heads
         q, k, v = self.qkv(x).reshape(b, t, 3, self.num_heads, d).unbind(2)
         out = scaled_dot_product_attention(q, k, v)
+        return self.proj(out.reshape(b, t, c))
+
+
+class MultiHeadCrossAttention(nn.Module):
+    """Queries from ``x``, keys and values from a ``context`` of the same
+    width and another length: always the plain attention path."""
+
+    def __init__(self, hidden: int, num_heads: int):
+        super().__init__()
+        self.num_heads = num_heads
+        self.to_q = nn.Linear(hidden, hidden)
+        self.to_k = nn.Linear(hidden, hidden)
+        self.to_v = nn.Linear(hidden, hidden)
+        self.proj = nn.Linear(hidden, hidden)
+
+    def forward(self, x, context):
+        b, t, c = x.shape
+        d = c // self.num_heads
+        split = lambda y: y.reshape(b, y.shape[1], self.num_heads, d)
+        out = scaled_dot_product_attention(split(self.to_q(x)),
+                                           split(self.to_k(context)),
+                                           split(self.to_v(context)))
         return self.proj(out.reshape(b, t, c))
 
 

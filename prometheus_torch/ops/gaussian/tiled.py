@@ -179,7 +179,14 @@ def tile_overflow_stats(proj: Projected, tile_size: int, grid_w: int,
                         s_max: int | None = None) -> dict:
     """Diagnostics for the binning's static caps: window clamps, instance
     totals against ``s_max`` and csort tier overflow (gaussians ranked
-    below a tier's ``B`` lose their tiles in that tier's range)."""
+    below a tier's ``B`` lose their tiles in that tier's range).
+
+    ``csort_tier_overflow`` is the JAX package's count: gaussians past each
+    tier's listed ``B``. The binning keeps ``_tier_b_eff(B, n)`` gaussians a
+    tier, which is below ``B`` under 524,288 gaussians, so that count can
+    read 0 while tiles are dropped. ``csort_pairs_dropped`` is exact: the
+    (gaussian, window tile) pairs of ``instances_needed`` that no tier
+    emits, before the opacity test."""
     x0, x1, y0, y1 = _tile_bbox(proj, tile_size, grid_w, grid_h)
     nx, ny = x1 - x0 + 1, y1 - y0 + 1
     valid = proj.valid
@@ -195,8 +202,23 @@ def tile_overflow_stats(proj: Projected, tile_size: int, grid_w: int,
         if tier_b is not None:
             overflow += max(int((cover > k_lo).sum()) - tier_b, 0)
         k_lo = k_hi
+    # the binning's tiers: gaussians ranked by window area past a tier's
+    # selection size lose that tier's window tiles [k_lo, k_hi)
+    ranked = torch.sort(cover, descending=True).values
+    n = int(proj.mean2d.shape[0])
+    dropped, k_lo = 0, 0
+    for k_hi, tier_b in _CSORT_TIERS:
+        k_hi = min(k_hi, max_tiles[0] * max_tiles[1])
+        if k_hi <= k_lo:
+            continue
+        b_eff = _tier_b_eff(tier_b, n)
+        if b_eff is not None:
+            dropped += int((torch.clamp_max(ranked[b_eff:], k_hi) - k_lo)
+                           .clamp_min(0).sum())
+        k_lo = k_hi
     return {
         "csort_tier_overflow": overflow,
+        "csort_pairs_dropped": dropped,
         "n_valid": int(valid.sum()),
         "n_window_clamped": int(clamped.sum()),
         "instances_needed": total,

@@ -1,25 +1,30 @@
-"""PrometheusPipeline: text -> MV-LDM latents -> 3D Gaussians -> renders
-(``prometheus_tpu/pipeline.py``) with caller-given cameras.
+"""PrometheusPipeline: text -> camera trajectory -> MV-LDM latents -> 3D
+Gaussians -> renders (``prometheus_tpu/pipeline.py``).
 
-``generate`` runs CLIP text encoding, the Euler MV-LDM sampler with joint
-classifier-free guidance and CFG rescale, the VAE 2-D decode of images and
-depths, the GS decoder with ``convert_gaussians``, and
-``render_views_chunked`` through the compositor kernel. The text-to-camera
-trajectory (TrajDiT) is not ported yet, so ``generate`` needs ``cameras``.
-``build_pipeline`` is the counterpart of ``bench.py::build_flagship``:
-flagship width (or the small test width) with seeded random weights.
+``generate`` runs CLIP text encoding, TrajDiT's DDIM sampler for a
+29-camera trajectory cut to the sparse views (unless the caller gives
+``cameras``), the Euler MV-LDM sampler with joint classifier-free guidance
+and CFG rescale, the VAE 2-D decode of images and depths, the GS decoder
+with ``convert_gaussians``, and ``render_views_chunked`` through the
+compositor kernel. ``render_orbit_video`` renders the slerp-resampled
+trajectory for the video export. ``build_pipeline`` is the counterpart of
+``bench.py::build_flagship``: flagship width (or the small test width) with
+seeded random weights.
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 import time
 
 import torch
 
-from .models import CLIPTokenizer, GSDecoderModel, MVLDMModel
+from .models import CLIPTokenizer, GSDecoderModel, MVLDMModel, TrajDiTModel
+from .models.traj_dit import camera_to_token
 from .ops.gaussian import convert_gaussians, render_gaussians
-from .systems import MVLDMSystem
-from .utils import resolve_device
+from .systems import MVLDMSystem, TrajDiTSystem
+from .utils import (look_at, make_camera, resolve_device,
+                    sample_from_dense_cameras)
 from .utils.rays import raymap as make_raymap
 from .weights import init_random_
 
@@ -31,15 +36,18 @@ SMALL_MVLDM = dict(model_channels=64, num_head_channels=32, context_dim=64,
                    image_size=64)
 SMALL_GSDECODER = dict(dit_hidden_size=64, dit_depth=2, dit_num_heads=4,
                        vae_ch=32, vae_ch_mult=(1, 2, 4))
+SMALL_TRAJ = dict(hidden_size=64, num_blocks=2, num_heads=4, text_dim=64)
 
 
 @dataclasses.dataclass(eq=False)
 class PrometheusPipeline:
-    """The MV-LDM system and the GS decoder (the ``full.ckpt`` analogue,
-    without the trajectory stage)."""
+    """The MV-LDM system, the GS decoder and the TrajDiT system (the
+    ``full.ckpt`` analogue). Without ``traj``, ``generate`` needs
+    ``cameras``."""
 
     mvldm: MVLDMSystem
     gsdecoder: GSDecoderModel
+    traj: TrajDiTSystem | None = None
     tokenizer: CLIPTokenizer = dataclasses.field(
         default_factory=CLIPTokenizer)
     gs_kwargs: dict = dataclasses.field(default_factory=lambda: dict(
@@ -54,6 +62,29 @@ class PrometheusPipeline:
         ids = torch.from_numpy(self.tokenizer(texts)).to(self.device)
         return self.mvldm.encode_text(ids)
 
+    def generate_trajectory(self, text_embeddings: torch.Tensor,
+                            generator: torch.Generator | None = None,
+                            num_steps: int = 100, image_size: int = 512,
+                            noise: torch.Tensor | None = None) -> torch.Tensor:
+        """``(B, L, D)`` text embeddings -> ``(B, 29, 18)`` dense cameras."""
+        if self.traj is None:
+            raise ValueError("this pipeline has no TrajDiT stage; pass "
+                             "cameras to generate")
+        return self.traj.inference(text_embeddings, generator,
+                                   num_inference_steps=num_steps,
+                                   image_size=image_size, noise=noise)
+
+    @staticmethod
+    def sparse_views(dense_cameras: torch.Tensor,
+                     num_views: int = 8) -> torch.Tensor:
+        """Stride-subsample the trajectory so the views span it end to end:
+        stride ``(n - 1) // (v - 1)``, so 29 cameras give 0, 4, ..., 28."""
+        n = dense_cameras.shape[1]
+        if num_views <= 1:
+            return dense_cameras[:, :1]
+        stride = max((n - 1) // (num_views - 1), 1)
+        return dense_cameras[:, ::stride][:, :num_views]
+
     @torch.no_grad()
     def decode_gaussians(self, latents: torch.Tensor, cameras: torch.Tensor):
         """x0 RGB-D latents ``(B, N, 8, h, w)`` + cameras -> gaussian tuple."""
@@ -65,27 +96,29 @@ class PrometheusPipeline:
     @torch.no_grad()
     def generate(self, text, cameras: torch.Tensor | None = None,
                  generator: torch.Generator | None = None,
-                 num_inference_steps: int = 50, guidance_scale: float = 7.5,
+                 num_views: int = 8, num_inference_steps: int = 50,
+                 num_traj_steps: int = 100, guidance_scale: float = 7.5,
                  guidance_type: str = "joint", cfg_rescale: float = 0.7,
-                 render_size: int = 512, negative_text: str = "",
-                 latent_hw: int | None = None,
+                 render_size: int = 512, image_size: int = 512,
+                 negative_text: str = "", latent_hw: int | None = None,
                  render_tile_capacity: int = 1024,
-                 noise: torch.Tensor | None = None) -> dict:
-        """Text -> 3DGS scene for the given ``cameras (B, N, 18)``.
+                 noise: torch.Tensor | None = None,
+                 traj_noise: torch.Tensor | None = None) -> dict:
+        """Text -> 3DGS scene.
 
-        ``noise``: the sampler's standard-normal start ``(B, N, 8, h, w)``,
-        drawn from ``generator`` when not given. Returns the result dict of
-        the JAX pipeline plus ``timings``: seconds per stage (the card is
+        Without ``cameras``, TrajDiT samples a 29-camera trajectory at
+        ``image_size``^2 in ``num_traj_steps`` DDIM steps and
+        ``sparse_views`` cuts it to ``num_views`` cameras; with ``cameras
+        (B, N, 18)`` those are used and are also the dense cameras.
+        ``traj_noise`` ``(B, 29, 11)`` and ``noise`` ``(B, N, 8, h, w)``:
+        the two samplers' standard-normal starts, drawn from ``generator``
+        (trajectory first) when not given. Returns the result dict of the
+        JAX pipeline plus ``timings``: seconds per stage (the card is
         synchronised at each stage boundary).
         """
-        if cameras is None:
-            raise NotImplementedError(
-                "generate needs cameras: the TrajDiT text-to-camera stage is "
-                "the first item of the next slice of the port (ROADMAP.md)")
         if isinstance(text, str):
             text = [text]
         dev = self.device
-        cameras = cameras.to(device=dev, dtype=torch.float32)
         timings = {}
         t0 = time.perf_counter()
 
@@ -100,6 +133,15 @@ class PrometheusPipeline:
         text_emb = self.encode_text(text)
         uncond_emb = self.encode_text([negative_text]).expand(text_emb.shape)
         mark("encode_text")
+        if cameras is None:
+            dense = self.generate_trajectory(
+                text_emb, generator, num_steps=num_traj_steps,
+                image_size=image_size, noise=traj_noise)
+            cameras = self.sparse_views(dense, num_views)
+            mark("trajectory")
+        else:
+            cameras = cameras.to(device=dev, dtype=torch.float32)
+            dense = cameras
         hw = latent_hw or self.mvldm.model.latent_size
         latents = self.mvldm.sample(
             cameras, text_emb, uncond_emb, generator=generator,
@@ -117,7 +159,7 @@ class PrometheusPipeline:
         mark("render")
         return {
             "cameras": cameras,
-            "dense_cameras": cameras,
+            "dense_cameras": dense,
             "latents_pred": latents,
             "images_pred": images_pred,
             "depths_pred": depths_pred,
@@ -143,21 +185,67 @@ class PrometheusPipeline:
                 for i in range(0, N, chunk)]
         return tuple(torch.cat([o[k] for o in outs], dim=1) for k in range(3))
 
+    @torch.no_grad()
+    def render_orbit_video(self, gaussians, dense_cameras: torch.Tensor,
+                           num_frames: int = 120, size: int = 512,
+                           chunk: int = 8,
+                           tile_capacity: int = 512) -> torch.Tensor:
+        """Render the first scene's trajectory, slerp-resampled to
+        ``num_frames`` cameras, ``chunk`` frames a compositor launch ->
+        ``(T, 3, size, size)`` float32 in [-1, 1] on the CPU.
+
+        Tile capacity 512 is the JAX package's choice for this display
+        path (``PERF.md`` holds the port's ``psnr_vs_exact`` readings at
+        512 and 1024).
+        """
+        t = torch.linspace(0, 1, num_frames,
+                           device=dense_cameras.device)[None]
+        cams = sample_from_dense_cameras(
+            dense_cameras[:1].to(torch.float32), t)
+        g1 = tuple(g[:1] for g in gaussians)
+        frames = [render_gaussians(cams[:, i:i + chunk], g1, h=size, w=size,
+                                   tile_capacity=tile_capacity)[0][0].cpu()
+                  for i in range(0, num_frames, chunk)]
+        return torch.cat(frames, dim=0)
+
+
+def default_camera_token() -> torch.Tensor:
+    """The token of a 60-degree camera two units from the origin, looking at
+    it: what the random TrajDiT's output layer is centred on."""
+    eye = torch.tensor([[0.0, 0.0, 2.0]])
+    f = 0.5 / math.tan(math.radians(30.0))
+    cam = make_camera(look_at(eye, torch.zeros_like(eye)), f, f, 0.5, 0.5,
+                      1.0, 1.0)
+    return camera_to_token(cam[None])[0, 0]
+
 
 def build_pipeline(small: bool = False, device: str | torch.device = "cuda",
                    dtype: torch.dtype = torch.bfloat16,
                    seed: int = 0) -> PrometheusPipeline:
     """The flagship-width pipeline (SD-2.1 U-Net at 256^2 image / 32^2
     latent, CLIP ViT-H text tower, GS decoder with its 16-block cross-view
-    DiT) or, with ``small``, the reduced test widths; seeded random weights
-    (``weights.init_random_``) in ``dtype`` on ``device``."""
+    DiT, TrajDiT of 8 blocks at width 512) or, with ``small``, the reduced
+    test widths; seeded random weights (``weights.init_random_``) in
+    ``dtype`` on ``device``.
+
+    TrajDiT's output layer is then scaled by 0.1 and its bias set to
+    ``default_camera_token()``, so that the random trajectory's cameras
+    stay clear of ``token_to_camera``'s guards (a zero-mean output would
+    clamp half the focal lengths to ``1e-3 * image_size``).
+    """
     device = resolve_device(device)
     with torch.device("meta"):
         mv = MVLDMModel(**(SMALL_MVLDM if small else dict(image_size=256)))
         gs = GSDecoderModel(**(SMALL_GSDECODER if small else {}))
+        traj = TrajDiTModel(**(SMALL_TRAJ if small else {}))
     g = torch.Generator(device=device).manual_seed(seed)
-    for m in (mv, gs):
+    for m in (mv, gs, traj):
         m.to_empty(device=device)
         init_random_(m, g)
+    with torch.no_grad():
+        traj.out_block.weight.mul_(0.1)
+        traj.out_block.bias.copy_(default_camera_token())
+    for m in (mv, gs, traj):
         m.to(dtype).eval()
-    return PrometheusPipeline(mvldm=MVLDMSystem(model=mv), gsdecoder=gs)
+    return PrometheusPipeline(mvldm=MVLDMSystem(model=mv), gsdecoder=gs,
+                              traj=TrajDiTSystem(model=traj))

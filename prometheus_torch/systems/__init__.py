@@ -1,6 +1,7 @@
 from .depth_loss import scale_and_shift_invariant_loss
 from .gs_decoder_system import GSDecoderSystem, psnr
 from .mv_ldm_system import MVLDMSystem
+from .traj_dit_system import TrajDiTSystem
 
-__all__ = ["GSDecoderSystem", "MVLDMSystem", "psnr",
+__all__ = ["GSDecoderSystem", "MVLDMSystem", "TrajDiTSystem", "psnr",
            "scale_and_shift_invariant_loss"]

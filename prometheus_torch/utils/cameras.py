@@ -11,6 +11,9 @@ import math
 
 import torch
 
+from .quaternion import (matrix_to_quaternion, quaternion_normalize,
+                         quaternion_slerp, quaternion_to_matrix)
+
 CAMERA_DIM = 18
 
 
@@ -86,3 +89,45 @@ def get_random_cameras(n: int, generator: torch.Generator | None = None, *,
     f = 0.5 * size / math.tan(math.radians(fov) / 2)
     return make_camera(c2w, f, f, size / 2.0, size / 2.0, float(size),
                        float(size))
+
+
+def sample_from_two_poses(pose_a: torch.Tensor, pose_b: torch.Tensor,
+                          frac: torch.Tensor,
+                          generator: torch.Generator | None = None,
+                          noise_strengths=(0.0, 0.0)) -> torch.Tensor:
+    """Slerp the rotations and lerp the translations of two ``(..., 3, 4)``
+    poses at ``frac``. With ``generator`` and a nonzero strength, the
+    quaternion and then the translation get Gaussian noise of that
+    standard deviation, drawn from ``generator`` (on the poses' device)."""
+    qa = matrix_to_quaternion(pose_a[..., :3, :3])
+    qb = matrix_to_quaternion(pose_b[..., :3, :3])
+    q = quaternion_slerp(qa, qb, frac)
+    t = (1.0 - frac)[..., None] * pose_a[..., :3, 3] \
+        + frac[..., None] * pose_b[..., :3, 3]
+    if generator is not None and (noise_strengths[0] > 0
+                                  or noise_strengths[1] > 0):
+        draw = lambda x: torch.randn(x.shape, generator=generator,
+                                     device=x.device, dtype=x.dtype)
+        q = quaternion_normalize(q + noise_strengths[0] * draw(q))
+        t = t + noise_strengths[1] * draw(t)
+    return torch.cat([quaternion_to_matrix(q), t[..., None]], dim=-1)
+
+
+def sample_from_dense_cameras(dense_cameras: torch.Tensor, t: torch.Tensor,
+                              generator: torch.Generator | None = None,
+                              noise_strengths=(0.0, 0.0, 0.0, 0.0)
+                              ) -> torch.Tensor:
+    """Resample a ``(B, N, 18)`` camera trajectory at positions ``t (B, M)``
+    in [0, 1]: poses slerped between the two neighbouring cameras,
+    intrinsics lerped. Returns ``(B, M, 18)``."""
+    B, N, _ = dense_cameras.shape
+    M = t.shape[1]
+    left = torch.clamp(torch.floor(t * (N - 1)).to(torch.int64), 0, N - 2)
+    frac = t * (N - 1) - left
+    a = torch.gather(dense_cameras, 1, left[..., None].expand(B, M, 18))
+    b = torch.gather(dense_cameras, 1, (left + 1)[..., None].expand(B, M, 18))
+    pose = sample_from_two_poses(
+        a[..., :12].reshape(B, M, 3, 4), b[..., :12].reshape(B, M, 3, 4),
+        frac, generator=generator, noise_strengths=noise_strengths[:2])
+    intr = (1.0 - frac)[..., None] * a[..., 12:] + frac[..., None] * b[..., 12:]
+    return torch.cat([pose.reshape(B, M, 12), intr], dim=-1)

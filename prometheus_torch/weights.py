@@ -7,6 +7,7 @@ maps onto a PyTorch name mechanically:
 - ``kernel`` becomes ``weight``: Dense ``(in, out)`` -> ``(out, in)``,
   conv HWIO -> OIHW;
 - ``scale`` (LayerNorm, GroupNorm) and ``embedding`` become ``weight``;
+- a raw parameter (TrajDiT's ``pos_embed``) keeps its name and layout;
 - ``batch_stats`` entries (the EMANorm magnitudes) load into buffers.
 """
 from __future__ import annotations
@@ -77,8 +78,8 @@ def load_jax_params(module: nn.Module, tree: Mapping) -> list[str]:
 @torch.no_grad()
 def init_random_(module: nn.Module, generator: torch.Generator) -> None:
     """Seeded random weights: matrices and conv kernels ``N(0, 1/fan_in)``,
-    the text position table ``N(0, 0.01^2)``, norm scales 1, biases 0,
-    EMANorm magnitudes 1.
+    the text position table ``N(0, 0.01^2)``, norm scales 1, biases and
+    other parameters (TrajDiT's position table) 0, EMANorm magnitudes 1.
 
     No layer starts at zero (the JAX package zero-initialises its output
     projections), so every block of a randomly initialised model shapes

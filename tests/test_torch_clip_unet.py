@@ -39,6 +39,16 @@ def test_tokenizer_matches_jax():
     assert ids[2, 0] == 49406 and (ids[2, 1:] == 49407).all()
 
 
+def test_tokenizer_fallback_warning_is_true():
+    """The fallback maps a token to Python's salted ``hash``: the warning
+    says so and does not call it deterministic."""
+    with pytest.warns(UserWarning) as rec:
+        CLIPTokenizer()
+    msg = str(rec[0].message)
+    assert "deterministic" not in msg
+    assert "PYTHONHASHSEED" in msg and "per process" in msg
+
+
 def test_clip_text_model(rng):
     with warnings.catch_warnings():
         warnings.simplefilter("ignore")

@@ -63,6 +63,10 @@ from prometheus_torch.ops.gaussian.projection import ALPHA_CUTOFF, MAX_ALPHA
 PATH_SHAPES = [(16, 1024, 5, 64), (2, 2048, 10, 64), (2, 512, 20, 64),
                (16, 1024, 1, 512), (8, 1024, 1, 512), (1, 2048, 16, 72),
                (4, 1024, 16, 72)]
+# kernel A's shapes at the small test widths (``build_pipeline(small=True)``
+# on a card): the DiT at D = 16, the U-Net's joint sites at D = 32, whose
+# 32- and 64-byte rows TMA pads to the 64-column box with zeros
+SMALL_SHAPES = [(1, 512, 4, 16), (2, 512, 4, 32), (2, 2048, 2, 32)]
 # the shapes the stage-1 train step differentiates (DiT, VAE decoder mid)
 TRAIN_SHAPES = [(4, 1024, 16, 72), (16, 1024, 1, 512)]
 # A-bwd's D <= 64 variant, which no train step of the port reaches yet (the
@@ -184,7 +188,7 @@ def test_flash_tolerance_separates_rounding_from_faults(rng, t, d, block):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("shape", PATH_SHAPES)
+@pytest.mark.parametrize("shape", PATH_SHAPES + SMALL_SHAPES)
 def test_flash_kernel_matches_plain_on_card(shape):
     need_card()
     g = torch.Generator(device="cuda").manual_seed(0)

@@ -181,3 +181,36 @@ def test_empty_scene():
         h=32, w=32)
     assert float(m.max()) == 0.0 and torch.allclose(img, torch.ones_like(img))
 
+
+
+def overflow_scene(rng, n, lo_tiles, hi_tiles, grid=16):
+    """``n`` round splats of ``lo_tiles`` to ``hi_tiles`` 16-pixel tiles
+    across, at random over a ``grid`` x ``grid`` tile image."""
+    hw = 16 * grid
+    r = torch.from_numpy(rng.uniform(lo_tiles, hi_tiles, n).astype(
+        np.float32)) * 8.0
+    sig = r / 3.0
+    conic = torch.stack([1 / sig**2, torch.zeros(n), 1 / sig**2], -1)
+    mean = torch.from_numpy(rng.uniform(0, hw, (n, 2)).astype(np.float32))
+    depth = torch.from_numpy(rng.uniform(1, 5, n).astype(np.float32))
+    return Projected(mean, conic, depth, r, torch.ones(n, dtype=torch.bool),
+                     rx=r, ry=r)
+
+
+@pytest.mark.parametrize("n,lo,hi,dropped", [(2000, 3.0, 8.0, True),
+                                             (300, 0.5, 2.0, False)])
+def test_csort_pairs_dropped_is_exact(rng, n, lo, hi, dropped):
+    """The binning keeps ``_tier_b_eff(B, n)`` gaussians a tier, below the
+    listed ``B`` under 524,288 gaussians: on 2,000 splats of 3-8 tiles the
+    JAX-equal ``csort_tier_overflow`` reads 0 while pairs are dropped.
+    ``csort_pairs_dropped`` is the window pairs needed minus those the
+    binning emits, and 0 on a scene whose tiers hold every splat."""
+    proj = overflow_scene(rng, n, lo, hi)
+    stats = torch_overflow(proj, 16, 16, 16, (32, 32))
+    st, _ = torch_csort(proj, 16, 16, 16, (32, 32))
+    emitted = int((st < 256).sum())
+    assert stats["csort_tier_overflow"] == 0
+    assert stats["csort_pairs_dropped"] == stats["instances_needed"] - emitted
+    assert (stats["csort_pairs_dropped"] > 0) == dropped
+    if dropped:
+        assert stats["csort_pairs_dropped"] > 0.3 * stats["instances_needed"]
