@@ -187,6 +187,12 @@ TRAJ_STEPS, VIDEO_CAPACITY, VIDEO_CHUNK, PSNR_TILES = 100, 512, 8, 32
 # train steps of the stage-1 phase (one cold, two warm) and the batch sizes
 # tried in turn (the configuration's 4, cut only if it does not fit)
 TRAIN_STEPS, TRAIN_BATCHES = 3, (4, 2, 1)
+# the sampler-mode phases' steps (the reference samples 50); the refiners'
+# iterations (the CLI's default is 300) and the MV-SDS++ densify interval
+# (100 at 300 iterations: cut with them); the CLI refine's iterations
+MODE_STEPS = 8
+REFINE_MV_ITERS, REFINE_MV_INTERVAL, REFINE_SDS_ITERS = 30, 10, 10
+CLI_REFINE_ITERS = 10
 
 
 def log(msg: str) -> None:
@@ -314,18 +320,18 @@ def attention_bound(shape):
     return bound(flops, PEAK_BF16_FLOPS, nbytes)
 
 
-def phase_attention() -> dict:
+def attention_rows(shapes, seed: int) -> list:
+    """Hold kernel A against its plain version at each ``(shape, where)``
+    and time it beside the plain path and SDPA; one row a shape."""
     import torch
     import torch.nn.functional as F
 
-    from prometheus_torch.ops.attention import (FLASH_ATTN_FWD,
-                                                attention_plain,
+    from prometheus_torch.ops.attention import (attention_plain,
                                                 flash_attention_fwd)
 
-    g = torch.Generator(device="cuda").manual_seed(1)
-    rows, worst, worst_scaled = [], 0.0, 0.0
-    head = None
-    for shape, where in ATTN_SHAPES:
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    rows = []
+    for shape, where in shapes:
         q, k, v = (torch.randn(shape, generator=g, device="cuda",
                                dtype=torch.bfloat16) for _ in range(3))
         out = flash_attention_fwd(q, k, v)[0]
@@ -352,20 +358,26 @@ def phase_attention() -> dict:
             raise RuntimeError(f"kernel A disagrees with its plain version "
                                f"at {shape}: scaled error {scaled} > "
                                f"{ATTN_TOL}")
-        worst, worst_scaled = max(worst, err), max(worst_scaled, scaled)
-        row = dict(shape=list(shape), ms=ms, plain_ms=plain_ms,
-                   library_ms=lib_ms, bound_ms=bound_ms, bound_by=bound_by,
-                   tflops=flops / (ms * 1e-3) / 1e12, max_abs_err=err,
-                   scaled_err=scaled)
-        rows.append(row)
-        if shape == ATTN_HEADLINE:
-            head = row
+        rows.append(dict(shape=list(shape), where=where, ms=ms,
+                         plain_ms=plain_ms, library_ms=lib_ms,
+                         bound_ms=bound_ms, bound_by=bound_by,
+                         tflops=flops / (ms * 1e-3) / 1e12, max_abs_err=err,
+                         scaled_err=scaled))
         del q, k, v, qt, kt, vt, out, ref
+    return rows
+
+
+def phase_attention() -> dict:
+    from prometheus_torch.ops.attention import FLASH_ATTN_FWD
+
+    rows = attention_rows(ATTN_SHAPES, seed=1)
     FLASH_ATTN_FWD.launches = 0
+    head = next(r for r in rows if tuple(r["shape"]) == ATTN_HEADLINE)
     return dict(name="flash_attn_fwd", route="cuda",
                 source="prometheus_torch/csrc/flash_attn_fwd.cu",
                 replaces="prometheus_tpu/ops/attention.py:87",
-                max_abs_err=worst, scaled_err=worst_scaled, ms=head["ms"],
+                max_abs_err=max(r["max_abs_err"] for r in rows),
+                scaled_err=max(r["scaled_err"] for r in rows), ms=head["ms"],
                 plain_ms=head["plain_ms"], bound_ms=head["bound_ms"],
                 bound_by=head["bound_by"], library_ms=head["library_ms"],
                 shape=head["shape"], shapes=rows)
@@ -475,20 +487,22 @@ def phase_compositor() -> dict:
                 library_ms=None, **res)
 
 
-def phase_attention_bwd() -> dict:
+def attention_bwd_rows(shapes, seed: int) -> list:
+    """Hold A-bwd (and kernel A's log-sum-exp) against the plain backward
+    at each ``(shape, where)`` and time it beside the plain version and
+    SDPA's autograd backward; one row a shape."""
     import torch
     import torch.nn.functional as F
 
-    from prometheus_torch.ops.attention import (FLASH_ATTN_BWD,
-                                                attention_lse_plain,
+    from prometheus_torch.ops.attention import (attention_lse_plain,
                                                 attention_plain,
                                                 flash_attention_bwd,
                                                 flash_attention_bwd_plain,
                                                 flash_attention_fwd)
 
-    g = torch.Generator(device="cuda").manual_seed(3)
-    rows, worst, worst_scaled = [], 0.0, 0.0
-    for shape, where in ATTN_BWD_SHAPES:
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    rows = []
+    for shape, where in shapes:
         q, k, v, do = (torch.randn(shape, generator=g, device="cuda",
                                    dtype=torch.bfloat16) for _ in range(4))
         o, lse = flash_attention_fwd(q, k, v, with_lse=True)
@@ -535,14 +549,20 @@ def phase_attention_bwd() -> dict:
             raise RuntimeError(f"kernel A-bwd disagrees with its plain "
                                f"version at {shape}: scaled errors {scaled}, "
                                f"log-sum-exp error {lse_err}")
-        worst = max(worst, max(errs))
-        worst_scaled = max(worst_scaled, max(scaled))
-        rows.append(dict(shape=list(shape), ms=ms, plain_ms=plain_ms,
-                         library_ms=lib_ms, bound_ms=bound_ms,
-                         bound_by=bound_by, tflops=flops / (ms * 1e-3) / 1e12,
-                         max_abs_err=max(errs),
-                         scaled_err=max(scaled), lse_err=lse_err))
+        rows.append(dict(shape=list(shape), where=where, ms=ms,
+                         plain_ms=plain_ms, library_ms=lib_ms,
+                         bound_ms=bound_ms, bound_by=bound_by,
+                         tflops=flops / (ms * 1e-3) / 1e12,
+                         max_abs_err=max(errs), scaled_err=max(scaled),
+                         lse_err=lse_err))
         del q, k, v, do, o, lse, qt, kt, vt, out_t, do_t
+    return rows
+
+
+def phase_attention_bwd() -> dict:
+    from prometheus_torch.ops.attention import FLASH_ATTN_BWD
+
+    rows = attention_bwd_rows(ATTN_BWD_SHAPES, seed=3)
     FLASH_ATTN_BWD.launches = 0
     head = rows[0]
     return dict(name="flash_attn_bwd", route="cuda",
@@ -551,7 +571,8 @@ def phase_attention_bwd() -> dict:
                 ":941 (_flash_attention_bwd_dkv) and :1287 "
                 "(_flash_attention_bwd_dq), via prometheus_tpu/ops/"
                 "attention.py:87",
-                max_abs_err=worst, scaled_err=worst_scaled, ms=head["ms"],
+                max_abs_err=max(r["max_abs_err"] for r in rows),
+                scaled_err=max(r["scaled_err"] for r in rows), ms=head["ms"],
                 plain_ms=head["plain_ms"], bound_ms=head["bound_ms"],
                 bound_by=head["bound_by"], library_ms=head["library_ms"],
                 shape=head["shape"], shapes=rows)
@@ -572,7 +593,10 @@ def check_composite_bwd(label: str, data, gout, counts, grid_w: int,
     out = composite_tiles_bwd(*args)
     ref, walked, kept = composite_tiles_bwd_plain_counted(*args)
     errs = (out[:, :10] - ref[:, :10]).abs().amax(dim=(0, 2))
-    scaled = float((errs / ref[:, :10].abs().amax(dim=(0, 2))).max())
+    # a row the data gives no gradient (the refiner's clipped depth) must
+    # come out exactly zero
+    scale = ref[:, :10].abs().amax(dim=(0, 2)).clamp_min(1e-30)
+    scaled = float((errs / scale).max())
     err = float(errs.max())
     pad_zero = float(out[:, 10:].abs().max()) == 0.0
     past_walk = (torch.arange(data.shape[2], device=data.device)[None, :]
@@ -861,6 +885,339 @@ def phase_cli(pipe, card: str) -> dict:
     return dict(wall_s=wall, generate_s=rec["generate_seconds"],
                 stages_s=rec["timings"], exports_s=rec["export_seconds"],
                 launches=launches, video_launches=video, files=sizes)
+
+
+def record_attention_shapes() -> dict:
+    """Record every shape the attention kernels' wrappers are called with
+    on the card, under the name in ``seen["path"]`` (None: not recorded),
+    without changing what they compute."""
+    from prometheus_torch.ops import attention
+
+    seen = {"path": None, "fwd": {}, "bwd": {}}
+    fwd, bwd = attention.flash_attention_fwd, attention.flash_attention_bwd
+
+    def note(kind, q):
+        if seen["path"] is not None and q.device.type == "cuda":
+            seen[kind].setdefault(tuple(q.shape), set()).add(seen["path"])
+
+    def fwd_seen(q, k, v, with_lse=False):
+        note("fwd", q)
+        return fwd(q, k, v, with_lse=with_lse)
+
+    def bwd_seen(q, k, v, o, lse, do):
+        note("bwd", q)
+        return bwd(q, k, v, o, lse, do)
+
+    attention.flash_attention_fwd = fwd_seen
+    attention.flash_attention_bwd = bwd_seen
+    return seen
+
+
+def phase_sampler_modes(pipe, shapes: dict) -> dict:
+    """Flagship ``generate`` with given cameras in the sampler's other
+    modes: DPM-Solver++(2M) with hybrid guidance on the first half of the
+    steps, and 3D mode every 4 steps (two render-consistent steps in 8)."""
+    import torch
+
+    from prometheus_torch.utils import get_random_cameras
+
+    g = torch.Generator(device="cuda").manual_seed(SEED)
+    cams = get_random_cameras(8, g, size=256, device="cuda")[None]
+    runs = {"sampler_dpmpp_2m_hybrid": dict(
+                sampler="dpmpp_2m", guidance_type="hybrid",
+                cfg_interval_frac=0.5),
+            "sampler_3d_mode": dict(use_3d_mode_every_m_steps=4)}
+    out = {}
+    for name, kw in runs.items():
+        shapes["path"] = name
+        torch.cuda.reset_peak_memory_stats()
+        zero_counts()
+        t0 = time.perf_counter()
+        result = pipe.generate(PROMPT, cameras=cams, generator=g,
+                               num_inference_steps=MODE_STEPS,
+                               render_size=512, render_tile_capacity=1024,
+                               **kw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = read_counts()
+        shapes["path"] = None
+        peak = torch.cuda.max_memory_allocated()
+        stages = " ".join(f"{k} {v * 1e3:.1f}ms"
+                          for k, v in result["timings"].items())
+        log(f"generate, {name} ({MODE_STEPS} steps, {kw}): {wall:.3f} s; "
+            f"stages: {stages}; peak memory {peak / 2**30:.2f} GiB; "
+            f"launches {launches}")
+        check_generate_outputs(result, launches)
+        if "use_3d_mode_every_m_steps" in kw and \
+                launches["composite_fwd"] != 3:
+            raise RuntimeError(f"3D mode launched kernel B "
+                               f"{launches['composite_fwd']} times, not 3 "
+                               "(two 3D steps and the final render)")
+        out[name] = dict(wall_s=wall, stages_s=result["timings"],
+                         peak_bytes=peak, launches=launches)
+        del result
+    return out
+
+
+def watch_refine(refiner, binning: dict) -> dict:
+    """Watch ``refiner.refine_gaussians`` without changing what it
+    computes: the launch counters set to 0 just before it and read just
+    after; CUDA events at the start and end of each iteration's render (the
+    ``render_gaussians`` the refiner calls), around its guidance
+    (``_guidance_targets``) and at its end (the entry it logs); the
+    binning of its first and last render; the last worklists and upstream
+    gradients kernel C was given. Returns the record it fills."""
+    import torch
+
+    from prometheus_torch.ops.gaussian import composite_grad
+    from prometheus_torch.refiners import sds_pp
+
+    w = dict(marks=[], log=[], launches=None, binnings=[], c_args=None)
+
+    def mark(name):
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        w["marks"].append((name, ev))
+
+    class Log(list):
+        def append(self, entry):
+            mark("end")
+            super().append(entry)
+
+    render, guidance = sds_pp.render_gaussians, refiner._guidance_targets
+    refine = refiner.refine_gaussians
+    bwd = composite_grad.composite_tiles_bwd
+
+    def render_watched(*args, **kw):
+        mark("render")
+        out = render(*args, **kw)
+        if len(w["log"]) in (0, refiner.total_iterations - 1):
+            w["binnings"].append(dict(binning))
+        return out
+
+    def guidance_watched(*args, **kw):
+        mark("guidance")
+        out = guidance(*args, **kw)
+        mark("update")
+        return out
+
+    def bwd_held(*args):
+        w["c_args"] = args
+        return bwd(*args)
+
+    def refine_watched(*args, **kw):
+        sds_pp.render_gaussians = render_watched
+        composite_grad.composite_tiles_bwd = bwd_held
+        zero_counts()
+        try:
+            out = refine(*args, log=w["log"], **kw)
+            torch.cuda.synchronize()
+        finally:
+            sds_pp.render_gaussians = render
+            composite_grad.composite_tiles_bwd = bwd
+        w["launches"] = read_counts()
+        return out
+
+    w["log"] = Log()
+    refiner._guidance_targets = guidance_watched
+    refiner.refine_gaussians = refine_watched
+    return w
+
+
+def refine_report(kind: str, refiner, w: dict, seconds: float) -> dict:
+    """Check and print one watched refine: every loss finite, the alive
+    counts of each densify round, launches a iteration (A, A-bwd, B and C
+    each > 0), the csort pairs its first and last renders dropped, and the
+    warm median ms a iteration split into render (with the encoding),
+    guidance and grad-and-update, by CUDA events."""
+    iters = len(w["log"])
+    losses = [float(e["loss"]) for e in w["log"]]
+    if iters != refiner.total_iterations or not all(
+            map(math.isfinite, losses)):
+        raise RuntimeError(f"refine {kind}: {iters} iterations, losses "
+                           f"{losses}")
+    rounds = [(i, int(e["alive_before"]), int(e["alive_after"]))
+              for i, e in enumerate(w["log"]) if "alive_before" in e]
+    per_iter = {k: v / iters for k, v in w["launches"].items()}
+    for name, n in w["launches"].items():
+        if n <= 0:
+            raise RuntimeError(f"refine {kind}: {name} was not launched")
+    # iteration i: from the previous "end" (or its render) to its "end"
+    its, cur, prev_end = [], {}, None
+    for name, ev in w["marks"]:
+        cur.setdefault(name, ev)
+        if name == "end":
+            start = prev_end if prev_end is not None else cur["render"]
+            its.append(dict(
+                total=start.elapsed_time(ev),
+                render=cur["render"].elapsed_time(cur["guidance"]),
+                guidance=cur["guidance"].elapsed_time(cur["update"]),
+                update=cur["update"].elapsed_time(ev)))
+            prev_end, cur = ev, {}
+    warm = its[1:] or its
+    med = {k: statistics.median(it[k] for it in warm) for k in warm[0]}
+    dropped = [binning_stats(b) for b in w["binnings"]]
+    log(f"refine {kind}: {iters} iterations in {seconds:.3f} s; warm median "
+        f"ms an iteration: " + " ".join(f"{k} {v:.1f}" for k, v in
+                                        med.items())
+        + f"; losses " + " ".join(f"{x:.5g}" for x in losses)
+        + f"; alive before/after each densify round {rounds}; launches "
+        f"{w['launches']} ({per_iter} an iteration); csort of the first and "
+        f"last render: " + "; ".join(
+            f"{d['csort_pairs_dropped']} of {d['instances_needed']:.0f} "
+            f"pairs dropped" for d in dropped))
+    return dict(iterations=iters, seconds=seconds, warm_median_ms=med,
+                iteration_ms=its, losses=losses, densify_rounds=rounds,
+                launches=w["launches"], launches_per_iteration=per_iter,
+                csort=[{k: d[k] for k in ("csort_pairs_dropped",
+                                          "instances_needed")}
+                       for d in dropped])
+
+
+def phase_refine(pipe, binning: dict, shapes: dict, entry_b: dict,
+                 entry_c: dict) -> dict:
+    """``generate`` with an MV-SDS++ refiner (``REFINE_MV_ITERS``
+    iterations, a densify round every ``REFINE_MV_INTERVAL``), then the
+    SDS++ refiner with LoDS on the same scene (``REFINE_SDS_ITERS``); B and
+    C held on the last iteration's worklists and upstream gradients; the
+    dead slots' share of the refined scene's binning."""
+    import torch
+
+    from prometheus_torch.ops.gaussian.compositor import (COMPOSITE_BWD,
+                                                          COMPOSITE_FWD)
+    from prometheus_torch.utils import get_random_cameras
+
+    g = torch.Generator(device="cuda").manual_seed(SEED)
+    cams = get_random_cameras(8, g, size=256, device="cuda")[None]
+    out = {}
+    refiner = pipe.build_refiner(
+        "mv_sds", total_iterations=REFINE_MV_ITERS,
+        densification_interval=REFINE_MV_INTERVAL)
+    w = watch_refine(refiner, binning)
+    shapes["path"] = "refine_mv_sds"
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    result = pipe.generate(PROMPT, cameras=cams, generator=g,
+                           num_inference_steps=STEPS, render_size=512,
+                           refiner=refiner)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    shapes["path"] = None
+    out["mv_sds"] = refine_report("mv_sds", refiner, w,
+                                  result["timings"]["refine"])
+    out["mv_sds"]["peak_bytes"] = torch.cuda.max_memory_allocated()
+    log(f"generate with the mv_sds refiner: {wall:.3f} s; stages: " + " ".join(
+        f"{k} {v:.3f}s" for k, v in result["timings"].items())
+        + f"; peak memory {out['mv_sds']['peak_bytes'] / 2**30:.2f} GiB")
+    for name in ("images_sds_gs_render", "depths_sds_gs_render"):
+        if not bool(torch.isfinite(result[name]).all()):
+            raise RuntimeError(f"refine: {name} is not finite")
+    img = result["images_sds_gs_render"]
+    if float(img.min()) < -1.0 - 1e-5 or float(img.max()) > 1.0 + 1e-5:
+        raise RuntimeError("refined renders leave [-1, 1]")
+
+    # B and C on the last iteration's own worklists and upstream gradients
+    data, _, counts, grid_w, tpv, _ = w["c_args"]
+    entry_b["on_refine_iteration"] = check_composite_fwd(
+        "the last mv_sds refine iteration's worklists", data, counts,
+        grid_w, tpv)
+    entry_c["on_refine_iteration"] = check_composite_bwd(
+        "the last mv_sds refine iteration's worklists and upstream "
+        "gradients", *w["c_args"])
+    COMPOSITE_FWD.launches = COMPOSITE_BWD.launches = 0
+    del data, counts, w
+
+    # dead slots (zero opacity) need no tile pairs and cost none: the
+    # refined scene's binning with and without them (the csort tiers grow
+    # with the slot count, so the full buffer may drop fewer)
+    refined = scene_tuple(result["gaussians_sds"])
+    alive = refined[2] > 0
+    size = refiner.img_size
+    views = result["cameras"][0, :4].float().clone()
+    views[:, 12:18] *= size / views[:, 16:17]
+    stats = {}
+    for name, scene in (("all slots", refined),
+                        ("alive slots", tuple(x[alive] for x in refined))):
+        bin_scene(views, scene, size, 1024)
+        stats[name] = binning_stats(binning)
+    full, only = stats["all slots"], stats["alive slots"]
+    log(f"refined scene: {int(alive.sum())} of {alive.numel()} slots alive; "
+        f"binning in 4 views at {size}^2 with all slots: "
+        f"{full['instances_needed']:.0f} pairs needed, "
+        f"{full['csort_pairs_dropped']} dropped; alive slots only: "
+        f"{only['instances_needed']:.0f} needed, "
+        f"{only['csort_pairs_dropped']} dropped")
+    if (full["instances_needed"] != only["instances_needed"]
+            or full["csort_pairs_dropped"] > only["csort_pairs_dropped"]):
+        raise RuntimeError("the refined scene's dead slots add tile pairs "
+                           "or dropped pairs")
+    out["dead_slots"] = stats
+
+    refiner = pipe.build_refiner("sds", total_iterations=REFINE_SDS_ITERS)
+    w = watch_refine(refiner, binning)
+    text = pipe.encode_text([PROMPT])
+    uncond = pipe.encode_text([""])
+    shapes["path"] = "refine_sds"
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    refined = refiner.refine_gaussians(result["gaussians"], text, uncond,
+                                       result["dense_cameras"], generator=g)
+    seconds = time.perf_counter() - t0
+    shapes["path"] = None
+    out["sds"] = refine_report("sds", refiner, w, seconds)
+    out["sds"]["peak_bytes"] = torch.cuda.max_memory_allocated()
+    if not all(bool(torch.isfinite(x).all()) for x in refined):
+        raise RuntimeError("refine sds: non-finite gaussians")
+    return out
+
+
+def phase_cli_refine(pipe, card: str, shapes: dict) -> dict:
+    """The CLI once with the new options: ``--refine mv_sds`` for
+    ``CLI_REFINE_ITERS`` iterations, DPM-Solver++(2M) at ``MODE_STEPS``
+    steps, no video."""
+    from prometheus_torch import inference
+
+    out_root = LOG_DIR / "cli_refine"
+    shutil.rmtree(out_root, ignore_errors=True)
+    args = inference.parse_args([
+        "--prompt", PROMPT, "--export_dir", str(out_root), "--refine",
+        "mv_sds", "--refine_iters", str(CLI_REFINE_ITERS), "--sampler",
+        "dpmpp_2m", "--num_steps", str(MODE_STEPS), "--no_video"])
+    shapes["path"] = "cli_refine"
+    zero_counts()
+    t0 = time.perf_counter()
+    (rec,) = inference.run(args, pipe)
+    wall = time.perf_counter() - t0
+    launches = read_counts()
+    shapes["path"] = None
+    refined = Path(rec["paths"].get("renders_refined", ""))
+    if refined.name != "gs_renders_refined.png" or not refined.exists() \
+            or refined.stat().st_size <= 0:
+        raise RuntimeError(f"CLI --refine: no gs_renders_refined.png "
+                           f"({rec['paths']})")
+    stages = " ".join(f"{k} {v:.3f}s" for k, v in rec["timings"].items())
+    log(f"CLI --refine mv_sds --refine_iters {CLI_REFINE_ITERS} --sampler "
+        f"dpmpp_2m --num_steps {MODE_STEPS} --no_video on {card}: wall "
+        f"{wall:.3f} s ({stages}); {refined.name} "
+        f"{refined.stat().st_size} bytes; launches {launches}")
+    return dict(wall_s=wall, stages_s=rec["timings"], launches=launches)
+
+
+def phase_new_attention_shapes(shapes: dict) -> tuple:
+    """Kernels A and A-bwd at every shape the new paths gave them that the
+    attention phases do not already hold."""
+    held_fwd = {s for s, _ in ATTN_SHAPES}
+    held_bwd = {s for s, _ in ATTN_BWD_SHAPES}
+    where = lambda paths: "recorded on " + ", ".join(sorted(paths))
+    fwd = [(s, where(p)) for s, p in sorted(shapes["fwd"].items())
+           if s not in held_fwd]
+    bwd = [(s, where(p)) for s, p in sorted(shapes["bwd"].items())
+           if s not in held_bwd]
+    log("attention shapes of the new paths: forward " + "; ".join(
+        f"{s} {where(p)}" for s, p in sorted(shapes["fwd"].items()))
+        + "; backward " + "; ".join(
+        f"{s} {where(p)}" for s, p in sorted(shapes["bwd"].items())))
+    return attention_rows(fwd, seed=6), attention_bwd_rows(bwd, seed=7)
 
 
 def scene_tuple(gaussians):
@@ -1217,8 +1574,14 @@ def main() -> int:
         pipe, STEPS, SEED, binning)
     cli = phase_cli(pipe, card)
     phase_profile(pipe, kw)
+    shapes = record_attention_shapes()
+    modes = phase_sampler_modes(pipe, shapes)
+    refine = phase_refine(pipe, binning, shapes, entry_b, entry_c)
+    cli_refine = phase_cli_refine(pipe, card, shapes)
     del pipe
     torch.cuda.empty_cache()
+    entry_a["on_new_shapes"], entry_abwd["on_new_shapes"] = \
+        phase_new_attention_shapes(shapes)
     phase_scene_checks(traj_result, entry_b, entry_c, binning)
     del traj_result
     torch.cuda.empty_cache()
@@ -1244,7 +1607,11 @@ def main() -> int:
         "the train step's own worklists and upstream gradients", *c_args)
     del c_args, data, counts
     paths = {"generate": gen_launches, "generate_trajectory": traj_launches,
-             "cli": cli["launches"], "train_step": train_launches}
+             "cli": cli["launches"], "train_step": train_launches,
+             **{name: m["launches"] for name, m in modes.items()},
+             "refine_mv_sds": refine["mv_sds"]["launches"],
+             "refine_sds": refine["sds"]["launches"],
+             "cli_refine": cli_refine["launches"]}
     for entry, launches in ((entry_a, traj_launches),
                             (entry_b, traj_launches),
                             (entry_abwd, train_launches),
@@ -1252,6 +1619,9 @@ def main() -> int:
         entry["launches"] = launches[entry["name"]]
         entry["launches_by_path"] = {p: c[entry["name"]]
                                      for p, c in paths.items()}
+        entry["launches_per_refine_iteration"] = {
+            kind: r["launches_per_iteration"][entry["name"]]
+            for kind, r in refine.items() if kind != "dead_slots"}
     entry_b["launches_per_orbit_video"] = cli["video_launches"][
         "composite_fwd"]
     log("csort_pairs_dropped: generate " + str(
@@ -1262,11 +1632,19 @@ def main() -> int:
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "shape",
             "launches_by_path")
     extra = ("on_train_step", "on_orbit_chunk", "on_trained_stats",
-             "launches_per_orbit_video", "psnr_vs_exact_db")
+             "on_refine_iteration", "on_new_shapes",
+             "launches_per_refine_iteration", "launches_per_orbit_video",
+             "psnr_vs_exact_db")
     entries = (entry_a, entry_b, entry_abwd, entry_c)
     kernels = [{k: e[k] for k in keys + extra if k in e} for e in entries]
     (LOG_DIR / "attention_shapes.json").write_text(json.dumps(dict(
-        fwd=entry_a["shapes"], bwd=entry_abwd["shapes"]), indent=1))
+        fwd=entry_a["shapes"] + entry_a["on_new_shapes"],
+        bwd=entry_abwd["shapes"] + entry_abwd["on_new_shapes"],
+        recorded={k: {str(s): sorted(p) for s, p in shapes[k].items()}
+                  for k in ("fwd", "bwd")}), indent=1))
+    (LOG_DIR / "refine.json").write_text(json.dumps(dict(
+        sampler_modes=modes, refine=refine, cli_refine=cli_refine),
+        indent=1, default=str))
     (LOG_DIR / "cli.json").write_text(json.dumps(cli, indent=1))
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

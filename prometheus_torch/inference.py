@@ -1,27 +1,27 @@
 """Text -> 3DGS scene CLI of the port (the JAX package's ``inference.py``).
 
-Runs TrajDiT -> sparse views -> MV-LDM sampling -> VAE decode -> GS decoder
--> renders on one card (or on the CPU with ``--device cpu``) and writes, per
-prompt and sample, the JAX CLI's files: ``gs_renders.png``,
-``mv_images.png``, ``mv_depths.png``, ``gaussians.ply``,
-``gaussians.splat``, ``orbit.mp4`` (``orbit.gif`` where no mp4 writer is
-installed) and ``meta.json``.
+Runs TrajDiT -> sparse views -> MV-LDM sampling (any guidance type, Euler
+or DPM-Solver++(2M), optionally guided on a high-noise interval only, or in
+3D mode) -> VAE decode -> GS decoder -> renders -> optional SDS++ refinement
+(``--refine mv_sds|sds``) on one card (or on the CPU with ``--device cpu``)
+and writes, per prompt and sample, the JAX CLI's files: ``gs_renders.png``,
+``gs_renders_refined.png`` (with ``--refine``), ``mv_images.png``,
+``mv_depths.png``, ``gaussians.ply``, ``gaussians.splat``, ``orbit.mp4``
+(``orbit.gif`` where no mp4 writer is installed) and ``meta.json``.
 
     python -m prometheus_torch.inference --prompt "a cozy cabin"
     python -m prometheus_torch.inference --prompt "x" --small --device cpu \\
         --num_steps 2 --num_traj_steps 4 --render_size 32 \\
-        --num_video_frames 4
+        --num_video_frames 4 --refine mv_sds --refine_iters 2
 
 The weights are random (``pipeline.build_pipeline``, seed 0): checkpoint
-loading is not ported, and neither are ``--ckpt``, ``--ref_image``,
-``--refine``, ``--use_3d_mode_every_m_steps``, ``--sampler``,
-``--shard_views``, ``--cfg_interval_frac`` or guidance types other than
-``joint``, so argparse refuses them.
+loading is not ported, and neither are ``--ckpt``, ``--ref_image`` (image
+to 3D) or ``--shard_views``, so argparse refuses them.
 
-Seeds: sample ``j`` of prompt ``i`` draws its trajectory and sampler noise
-from a ``torch.Generator`` seeded from ``(seed + i, j)``. The JAX CLI
-draws from ``PRNGKey(seed + i)`` folded with ``j``, so the two CLIs draw
-different noise from the same ``--seed``.
+Seeds: sample ``j`` of prompt ``i`` draws its trajectory, sampler and
+refiner noise from a ``torch.Generator`` seeded from ``(seed + i, j)``. The
+JAX CLI draws from ``PRNGKey(seed + i)`` folded with ``j``, so the two CLIs
+draw different noise from the same ``--seed``.
 
 ``run(args, pipe)`` drives the CLI with a pipeline that is already built.
 """
@@ -49,14 +49,26 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--prompt", type=str, default=None)
     p.add_argument("--prompt_file", type=str, default=None)
     p.add_argument("--negative_prompt", type=str, default="")
+    p.add_argument("--use_3d_mode_every_m_steps", type=int, default=-1,
+                   help="render-consistent resampling every m steps (-1 off)")
+    p.add_argument("--refine", type=str, default=None,
+                   choices=["sds", "mv_sds"],
+                   help="test-time SDS++ refinement of the gaussians")
+    p.add_argument("--refine_iters", type=int, default=300)
     p.add_argument("--export_dir", type=str, default="./exports")
     p.add_argument("--num_steps", type=int, default=100)
     p.add_argument("--num_traj_steps", type=int, default=100)
     p.add_argument("--num_views", type=int, default=8)
     p.add_argument("--guidance_scale", type=float, default=7.5)
     p.add_argument("--guidance_type", type=str, default="joint",
-                   choices=["joint"])
+                   choices=["none", "text", "pose", "joint", "hybrid"])
     p.add_argument("--cfg_rescale", type=float, default=0.7)
+    p.add_argument("--sampler", type=str, default="euler",
+                   choices=["euler", "dpmpp_2m"],
+                   help="euler (the reference's) or DPM-Solver++(2M)")
+    p.add_argument("--cfg_interval_frac", type=float, default=None,
+                   help="guide only this high-noise fraction of the steps "
+                        "(default: every step)")
     p.add_argument("--render_size", type=int, default=512)
     p.add_argument("--image_size", type=int, default=512)
     p.add_argument("--num_samples", type=int, default=1,
@@ -91,6 +103,12 @@ def export_result(result: dict, pipe, prompt: str, out_dir: str,
     save_image(make_grid(postprocess_image(
         result["images_gs_render"][0].float().cpu().numpy())),
         paths["renders"])
+    if "images_sds_gs_render" in result:
+        paths["renders_refined"] = os.path.join(out_dir,
+                                                "gs_renders_refined.png")
+        save_image(make_grid(postprocess_image(
+            result["images_sds_gs_render"][0].float().cpu().numpy())),
+            paths["renders_refined"])
     paths["images_2d"] = os.path.join(out_dir, "mv_images.png")
     save_image(make_grid(postprocess_image(
         result["images_pred"][0].float().cpu().numpy())), paths["images_2d"])
@@ -147,6 +165,11 @@ def run(args, pipe=None) -> list[dict]:
         print("[inference] random weights (checkpoint loading is not ported)")
     if args.bpe_vocab:
         pipe.tokenizer = CLIPTokenizer(args.bpe_vocab)
+    refiner = None
+    if args.refine:
+        refiner = pipe.build_refiner(args.refine,
+                                     total_iterations=args.refine_iters,
+                                     img_size=min(args.render_size, 256))
     records = []
     for i, prompt in enumerate(prompts):
         for j in range(max(1, args.num_samples)):
@@ -161,7 +184,10 @@ def run(args, pipe=None) -> list[dict]:
                 guidance_type=args.guidance_type,
                 cfg_rescale=args.cfg_rescale,
                 render_size=args.render_size, image_size=args.image_size,
-                negative_text=args.negative_prompt)
+                negative_text=args.negative_prompt, sampler=args.sampler,
+                cfg_interval_frac=args.cfg_interval_frac,
+                use_3d_mode_every_m_steps=args.use_3d_mode_every_m_steps,
+                refiner=refiner)
             dt = time.perf_counter() - t0
             slug = "".join(c if c.isalnum() else "_"
                            for c in prompt[:48]).strip("_")
@@ -171,8 +197,10 @@ def run(args, pipe=None) -> list[dict]:
             paths, seconds = export_result(result, pipe, prompt, out_dir,
                                            args)
             n = int(result["gaussians"][0].shape[1])
+            stages = " ".join(f"{k} {v:.3f}"
+                              for k, v in result["timings"].items())
             print(f"[{i + 1}/{len(prompts)}] '{prompt}' sample {j} -> "
-                  f"{out_dir} ({dt:.1f}s)")
+                  f"{out_dir} ({dt:.1f}s; seconds by stage: {stages})")
             records.append(dict(out_dir=out_dir, paths=paths,
                                 timings=result["timings"],
                                 export_seconds=seconds, generate_seconds=dt,

@@ -1,11 +1,13 @@
 """MVLDMModel: the multi-view RGB-D latent diffusion model
 (``prometheus_tpu/models/mv_ldm.py``).
 
-Composes the MultiViewUNet denoiser, the SD VAE decoder and the CLIP text
-tower. ``denoise`` concatenates each view's low-res Plücker raymap onto the
-noisy RGB-D latents, repeats the text embeddings per view, flattens the views
-into the U-Net's batch with ``num_frames = N`` (joint cross-view attention),
-and returns the first 8 output channels (RGB latent 4 + depth latent 4).
+Composes the MultiViewUNet denoiser, the SD VAE (encoder and decoder) and
+the CLIP text tower. ``encode_image`` takes the posterior's mode (or a
+sample for given noise) times ``VAE_SCALE``, in float32. ``denoise``
+concatenates each view's low-res Plücker raymap onto the noisy RGB-D
+latents, repeats the text embeddings per view, flattens the views into the
+U-Net's batch with ``num_frames = N`` (joint cross-view attention), and
+returns the first 8 output channels (RGB latent 4 + depth latent 4).
 """
 from __future__ import annotations
 
@@ -32,6 +34,7 @@ class MVLDMModel(nn.Module):
                  vae_ch_mult: tuple = (1, 2, 4, 4)):
         super().__init__()
         self.image_size = image_size
+        self.extra_latent_channel = extra_latent_channel
         self.vae_ch_mult = tuple(vae_ch_mult)
         io_ch = latent_channel + extra_latent_channel        # 15
         self.unet = MultiViewUNet(
@@ -41,7 +44,7 @@ class MVLDMModel(nn.Module):
             context_dim=context_dim,
             disable_3d_attentions=disable_3d_attentions)
         self.vae = AutoencoderKL(embed_dim=latent_channel, ch=vae_ch,
-                                 ch_mult=vae_ch_mult)
+                                 ch_mult=vae_ch_mult, with_encoder=True)
         self.text_encoder = CLIPTextModel(width=clip_width,
                                           num_layers=clip_layers,
                                           num_heads=clip_width // 64)
@@ -53,6 +56,17 @@ class MVLDMModel(nn.Module):
     def encode_text(self, input_ids: torch.Tensor) -> torch.Tensor:
         """``(B, 77)`` int ids -> ``(B, 77, context_dim)``."""
         return self.text_encoder(input_ids)
+
+    def encode_image(self, images: torch.Tensor,
+                     noise: torch.Tensor | None = None) -> torch.Tensor:
+        """``images (B, N, 3, H, W)`` in [-1, 1] -> float32 latents ``(B, N,
+        4, h, w)``: the posterior's mode, or ``mean + std * noise`` for a
+        given standard-normal ``noise``, times ``VAE_SCALE``."""
+        B, N = images.shape[:2]
+        post = self.vae.encode(images.reshape((B * N,) + images.shape[2:]))
+        z = (post.mode() if noise is None else post.sample(noise)).float()
+        z = z * VAE_SCALE
+        return z.reshape((B, N) + z.shape[1:])
 
     def decode_latent(self, latents: torch.Tensor) -> torch.Tensor:
         """``(B, N, 4, h, w)`` -> images ``(B, N, 3, H, W)``."""

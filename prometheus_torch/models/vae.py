@@ -4,11 +4,11 @@
 ``encode(x)`` runs the encoder (ch 128, ch_mult (1, 2, 4, 4),
 ``num_res_blocks`` blocks per level, a stride-2 downsample after each
 non-final level, a res-attn-res middle) and the 1x1 ``quant_conv`` into a
-``DiagonalGaussian`` posterior; the MV-LDM inference model builds no encoder
-(``with_encoder=False``). ``decode(z, extra_z, post_conv, train)`` runs the
-1x1 ``post_quant_conv``, concatenates the extra conditioning channels, and
-decodes with ``num_res_blocks + 1`` blocks per level, a res-attn-res middle
-and GroupNorm(32, eps 1e-6). ``out_ch`` is 3 for images or 14 for gaussian
+``DiagonalGaussian`` posterior (built only with ``with_encoder``).
+``decode(z, extra_z, post_conv, train)`` runs the 1x1 ``post_quant_conv``,
+concatenates the extra conditioning channels, and decodes with
+``num_res_blocks + 1`` blocks per level, a res-attn-res middle and
+GroupNorm(32, eps 1e-6). ``out_ch`` is 3 for images or 14 for gaussian
 parameters; the GS decoder puts an EMANorm after each non-final upsample
 conv, which ``train`` updates. NCHW in and out.
 """

@@ -83,7 +83,8 @@ def composite_tiles_plain(data: torch.Tensor, counts: torch.Tensor,
 
     A loop over 128-instance chunks, vectorised over tiles and pixels, with
     the kernel's stopping rule: a tile stops after a chunk once every
-    pixel's transmittance is ``<= T_EPS``.
+    pixel's transmittance is ``<= T_EPS``. A chunk's weighted sums are
+    taken in float64, so the result does not depend on the thread count.
     """
     return composite_tiles_plain_counted(data, counts, grid_w,
                                          tiles_per_view, tile_size)[0]
@@ -133,10 +134,14 @@ def composite_tiles_plain_counted(data: torch.Tensor, counts: torch.Tensor,
         one_m = 1.0 - alpha
         t_in = torch.cumprod(torch.cat([torch.ones_like(one_m[..., :1]),
                                         one_m[..., :-1]], dim=-1), dim=-1)
-        w = alpha * t_in * trans[ids, :, None]
-        rgb[ids] += torch.einsum("apc,akc->apk", w, blk[:, 5:8, :])
-        dep[ids] += (w * blk[:, None, 9, :]).sum(-1)
-        acc[ids] += w.sum(-1)
+        # the chunk's sums in float64, elementwise (no BLAS, whose blocking
+        # and code path vary with the thread count and the buffers'
+        # alignment): the result does not depend on how the sum is split
+        w = (alpha * t_in * trans[ids, :, None]).double()
+        rgb[ids] += torch.stack([(w * blk[:, None, 5 + c, :].double()).sum(-1)
+                                 for c in range(3)], dim=-1).float()
+        dep[ids] += (w * blk[:, None, 9, :].double()).sum(-1).float()
+        acc[ids] += w.sum(-1).float()
         trans[ids] = trans[ids] * t_in[..., -1] * one_m[..., -1]
         more = (k0 + CHUNK < counts[ids]) & (trans[ids].amax(-1) > T_EPS)
         active[ids] = more

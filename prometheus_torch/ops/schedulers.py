@@ -2,9 +2,11 @@
 
 The MV-LDM sampler's EDM form: ``x_t = x0 + sigma * eps`` (variance
 exploding); callers scale by ``c_in`` before the network and read
-``x0 = c_skip * x_t + c_out * F``. Of those regimes only the one the
-flagship sampler uses is ported: ``vprediction`` (linear betas,
-zero-terminal-SNR rescale, v-prediction preconditioning).
+``x0 = c_skip * x_t + c_out * F``. The regimes: ``vprediction`` (linear
+betas, zero-terminal-SNR rescale, v-prediction preconditioning; the
+flagship), ``eprediction`` (scaled-linear betas, epsilon preconditioning)
+and ``edm`` (Karras sigmas, or the high-noise exponential ladder). The
+samplers step by Euler or by DPM-Solver++(2M).
 
 ``DDIMSchedule`` is the alpha-bar form of TrajDiT's deterministic
 sample-prediction sampler (``make_ddim``: scaled-linear betas, optionally
@@ -43,33 +45,85 @@ def rescale_zero_terminal_snr(alphas_cumprod: np.ndarray) -> np.ndarray:
     return out
 
 
+def sigmas_from_alphas_cumprod(alphas_cumprod: np.ndarray) -> np.ndarray:
+    """``sigma_t = sqrt((1 - abar_t) / abar_t)``, ascending in t."""
+    return np.sqrt((1.0 - alphas_cumprod) / alphas_cumprod)
+
+
 @dataclasses.dataclass(frozen=True)
 class Schedule:
-    """A beta-table schedule with EDM preconditioning."""
+    """A sigma-parameterised schedule with the EDM preconditioning table:
+    ``x0 = c_skip(s) x_t + c_out(s) F(c_in(s) x_t, c_noise(s))``.
 
+    ``kind`` is ``vprediction`` or ``eprediction`` (a beta table in
+    ``train_sigmas``) or ``edm`` (no table; training sigmas are lognormal
+    with ``p_mean`` and ``p_std``). The coefficient functions take sigma
+    as a tensor.
+    """
+
+    kind: str
     num_train_timesteps: int
-    train_sigmas: np.ndarray       # float32 sigma(t), ascending in t
+    prediction_type: str                # 'v_prediction' | 'epsilon'
+    train_sigmas: np.ndarray | None = None   # float32 sigma(t), ascending
+    sigma_min: float = 0.002
+    sigma_max: float = 80.0
+    rho: float = 7.0
+    sigma_schedule: str = "karras"      # 'karras' | 'exponential' (edm)
+    p_mean: float = -0.5
+    p_std: float = 1.2
+    sigma_data: float = 1.0
 
     def c_skip(self, s):
-        return 1.0 / (s**2 + 1)
+        sd = self.sigma_data
+        return sd**2 / (s**2 + sd**2)
 
     def c_out(self, s):
-        return -s / torch.sqrt(s**2 + 1)
+        if self.kind == "vprediction":
+            return -s / torch.sqrt(s**2 + 1)
+        if self.kind == "eprediction":
+            return s / torch.sqrt(s**2 + 1)
+        sd = self.sigma_data
+        return s * sd / torch.sqrt(s**2 + sd**2)
 
     def c_in(self, s):
-        return 1.0 / torch.sqrt(s**2 + 1)
+        return 1.0 / torch.sqrt(s**2 + self.sigma_data**2)
 
     def c_noise(self, s):
         return torch.log(s) / 4.0
 
+    def loss_weight(self, s):
+        sd = self.sigma_data
+        return (s**2 + sd**2) / (s * sd) ** 2
+
     def denoise_output_to_x0(self, x_t, model_out, sigma):
         return self.c_skip(sigma) * x_t + self.c_out(sigma) * model_out
 
-    def inference_sigmas(self, num_steps: int) -> torch.Tensor:
-        """Descending float32 ladder (linspace in timestep) with a trailing 0."""
-        n = self.num_train_timesteps
-        ts = np.linspace(0, n - 1, num_steps)[::-1].copy()
-        sig = np.interp(ts, np.arange(n), self.train_sigmas)
+    def inference_sigmas(self, num_steps: int,
+                         ladder: str = "default") -> torch.Tensor:
+        """Descending float32 ladder with a trailing 0 (``num_steps + 1``
+        entries), computed in float64. A beta table's default ladder is
+        linspace in timestep over the table; ``ladder='karras'`` spaces
+        rho-7 Karras steps between the table's ends (the multistep
+        sampler's ladder). EDM uses its own Karras or exponential ladder.
+        """
+        if self.train_sigmas is not None and ladder != "karras":
+            n = self.num_train_timesteps
+            ts = np.linspace(0, n - 1, num_steps)[::-1].copy()
+            sig = np.interp(ts, np.arange(n), self.train_sigmas)
+        elif self.train_sigmas is not None or self.sigma_schedule == "karras":
+            if self.train_sigmas is not None:
+                lo = float(self.train_sigmas[0])
+                hi = float(self.train_sigmas[-1])
+            else:
+                lo, hi = self.sigma_min, self.sigma_max
+            i = np.linspace(0, 1, num_steps)
+            inv_rho = 1.0 / self.rho
+            sig = (hi**inv_rho + i * (lo**inv_rho - hi**inv_rho)) ** self.rho
+        elif self.sigma_schedule == "exponential":
+            sig = np.exp(np.linspace(np.log(self.sigma_max),
+                                     np.log(self.sigma_min), num_steps))
+        else:
+            raise ValueError(self.sigma_schedule)
         return torch.tensor(np.concatenate([sig, [0.0]]), dtype=torch.float32)
 
     def euler_step(self, x_t, x0_pred, sigma, sigma_next):
@@ -77,17 +131,50 @@ class Schedule:
         d = (x_t - x0_pred) / sigma
         return x_t + (sigma_next - sigma) * d
 
+    def dpmpp_2m_step(self, x_t, x0_pred, x0_prev, sigma_prev, sigma,
+                      sigma_next, has_prev: bool):
+        """One DPM-Solver++(2M) update (data prediction, ``lambda = -log
+        sigma``). ``x0_prev`` and ``sigma_prev`` are the previous step's;
+        without one (``has_prev`` false) it is the first-order step
+        ``x0 + (s_next / s) (x - x0)``. ``sigma_next == 0`` returns x0."""
+        sn = torch.clamp_min(sigma_next, 1e-20)
+        h = torch.log(sigma) - torch.log(sn)
+        h_last = torch.log(torch.clamp_min(sigma_prev, 1e-20)) \
+            - torch.log(sigma)
+        if has_prev:
+            r = torch.clamp_min(h_last / h, 1e-6)
+            d = (1.0 + 1.0 / (2.0 * r)) * x0_pred - (1.0 / (2.0 * r)) * x0_prev
+        else:
+            d = x0_pred
+        return (sigma_next / sigma) * x_t - torch.expm1(-h) * d
 
-def make_schedule(kind: str = "vprediction",
+
+def make_schedule(kind: str = "vprediction", *, high_noise: bool = False,
+                  sigma_data: float = 1.0,
                   num_train_timesteps: int = 1000) -> Schedule:
-    if kind != "vprediction":
-        raise NotImplementedError(
-            f"schedule {kind!r} is not ported yet (see ROADMAP.md)")
-    ab = rescale_zero_terminal_snr(alphas_cumprod_from_betas(make_betas(
-        num_train_timesteps)))
-    table = np.sqrt((1.0 - ab) / ab).astype(np.float32)
-    return Schedule(num_train_timesteps=num_train_timesteps,
-                    train_sigmas=table)
+    """``vprediction`` (linear betas) and ``eprediction`` (scaled-linear
+    betas), both rescaled to zero terminal SNR, with their float32 sigma
+    tables computed in float64; ``edm`` with Karras sigmas in [0.002, 80]
+    or, with ``high_noise``, the exponential ladder up to 1e4 with
+    lognormal (1.5, 2.0) training sigmas."""
+    if kind in ("vprediction", "eprediction"):
+        ab = rescale_zero_terminal_snr(alphas_cumprod_from_betas(make_betas(
+            num_train_timesteps,
+            kind="linear" if kind == "vprediction" else "scaled_linear")))
+        return Schedule(
+            kind=kind, num_train_timesteps=num_train_timesteps,
+            prediction_type=("v_prediction" if kind == "vprediction"
+                             else "epsilon"),
+            train_sigmas=sigmas_from_alphas_cumprod(ab).astype(np.float32))
+    if kind == "edm":
+        common = dict(kind="edm", num_train_timesteps=num_train_timesteps,
+                      prediction_type="epsilon", sigma_data=sigma_data)
+        if high_noise:
+            return Schedule(**common, sigma_max=10000.0,
+                            sigma_schedule="exponential", p_mean=1.5,
+                            p_std=2.0)
+        return Schedule(**common)
+    raise ValueError(f"unknown schedule kind: {kind}")
 
 
 @dataclasses.dataclass(frozen=True)

@@ -3,11 +3,13 @@ Gaussians -> renders (``prometheus_tpu/pipeline.py``).
 
 ``generate`` runs CLIP text encoding, TrajDiT's DDIM sampler for a
 29-camera trajectory cut to the sparse views (unless the caller gives
-``cameras``), the Euler MV-LDM sampler with joint classifier-free guidance
-and CFG rescale, the VAE 2-D decode of images and depths, the GS decoder
-with ``convert_gaussians``, and ``render_views_chunked`` through the
-compositor kernel. ``render_orbit_video`` renders the slerp-resampled
-trajectory for the video export. ``build_pipeline`` is the counterpart of
+``cameras``), the MV-LDM sampler (Euler or DPM-Solver++(2M), any guidance
+type, CFG rescale, optionally guidance on a high-noise interval or 3D mode),
+the VAE 2-D decode of images and depths, the GS decoder with
+``convert_gaussians``, ``render_views_chunked`` through the compositor
+kernel and, with a refiner from ``build_refiner``, test-time SDS++
+refinement of the gaussians. ``render_orbit_video`` renders the
+slerp-resampled trajectory for the video export. ``build_pipeline`` is the counterpart of
 ``bench.py::build_flagship``: flagship width (or the small test width) with
 seeded random weights.
 """
@@ -103,7 +105,11 @@ class PrometheusPipeline:
                  negative_text: str = "", latent_hw: int | None = None,
                  render_tile_capacity: int = 1024,
                  noise: torch.Tensor | None = None,
-                 traj_noise: torch.Tensor | None = None) -> dict:
+                 traj_noise: torch.Tensor | None = None,
+                 sampler: str = "euler",
+                 cfg_interval_frac: float | None = None,
+                 use_3d_mode_every_m_steps: int = -1,
+                 refiner=None) -> dict:
         """Text -> 3DGS scene.
 
         Without ``cameras``, TrajDiT samples a 29-camera trajectory at
@@ -112,10 +118,26 @@ class PrometheusPipeline:
         (B, N, 18)`` those are used and are also the dense cameras.
         ``traj_noise`` ``(B, 29, 11)`` and ``noise`` ``(B, N, 8, h, w)``:
         the two samplers' standard-normal starts, drawn from ``generator``
-        (trajectory first) when not given. Returns the result dict of the
-        JAX pipeline plus ``timings``: seconds per stage (the card is
+        (trajectory first) when not given.
+
+        ``sampler`` (``euler`` or ``dpmpp_2m``) and ``cfg_interval_frac``
+        select the sampler's mode; ``use_3d_mode_every_m_steps > 0`` runs
+        ``MVLDMSystem.sample_with_3d_mode`` (Euler with full-interval
+        guidance only: anything else raises ``ValueError``), rendering at
+        the latent grid times the VAE's stride. A ``refiner``
+        (``build_refiner``) refines the first scene's gaussians from its
+        dense cameras, drawing from ``generator``, and adds
+        ``gaussians_sds``, ``images_sds_gs_render`` and
+        ``depths_sds_gs_render``. Returns the result dict of the JAX
+        pipeline plus ``timings``: seconds per stage (the card is
         synchronised at each stage boundary).
         """
+        if use_3d_mode_every_m_steps > 0 and (
+                sampler != "euler" or cfg_interval_frac is not None):
+            raise ValueError("use_3d_mode_every_m_steps supports only "
+                             "sampler='euler' with full-interval CFG "
+                             f"(got sampler={sampler!r}, "
+                             f"cfg_interval_frac={cfg_interval_frac!r})")
         if isinstance(text, str):
             text = [text]
         dev = self.device
@@ -143,11 +165,19 @@ class PrometheusPipeline:
             cameras = cameras.to(device=dev, dtype=torch.float32)
             dense = cameras
         hw = latent_hw or self.mvldm.model.latent_size
-        latents = self.mvldm.sample(
-            cameras, text_emb, uncond_emb, generator=generator,
-            num_inference_steps=num_inference_steps,
-            guidance_scale=guidance_scale, guidance_type=guidance_type,
-            cfg_rescale=cfg_rescale, latent_hw=hw, noise=noise)
+        kw = dict(generator=generator, num_inference_steps=num_inference_steps,
+                  guidance_scale=guidance_scale, guidance_type=guidance_type,
+                  cfg_rescale=cfg_rescale, latent_hw=hw, noise=noise)
+        if use_3d_mode_every_m_steps > 0:
+            model = self.mvldm.model
+            latents = self.mvldm.sample_with_3d_mode(
+                self.decode_gaussians, cameras, text_emb, uncond_emb,
+                use_3d_mode_every_m_steps=use_3d_mode_every_m_steps,
+                render_size=hw * (model.image_size // model.latent_size), **kw)
+        else:
+            latents = self.mvldm.sample(
+                cameras, text_emb, uncond_emb, sampler=sampler,
+                cfg_interval_frac=cfg_interval_frac, **kw)
         mark("sample")
         images_pred, depths_pred = self.mvldm.decode_images_and_depths(latents)
         mark("decode_2d")
@@ -157,7 +187,7 @@ class PrometheusPipeline:
             cameras, gaussians, h=render_size, w=render_size,
             tile_capacity=render_tile_capacity)
         mark("render")
-        return {
+        result = {
             "cameras": cameras,
             "dense_cameras": dense,
             "latents_pred": latents,
@@ -167,8 +197,73 @@ class PrometheusPipeline:
             "images_gs_render": images_gs,
             "depths_gs_render": depths_gs,
             "masks_gs_render": masks_gs,
-            "timings": timings,
         }
+        if refiner is not None:
+            gaussians_sds = refiner.refine_gaussians(
+                gaussians, text_emb[:1], uncond_emb[:1], dense,
+                generator=generator)
+            img_sds, dep_sds, _ = self.render_views_chunked(
+                cameras, gaussians_sds, h=render_size, w=render_size)
+            result.update(gaussians_sds=gaussians_sds,
+                          images_sds_gs_render=img_sds,
+                          depths_sds_gs_render=dep_sds)
+            mark("refine")
+        result["timings"] = timings
+        return result
+
+    def build_refiner(self, kind: str = "mv_sds", **overrides):
+        """A test-time SDS++ refiner on this pipeline's towers, its weights
+        frozen (``requires_grad_(False)``).
+
+        ``kind='mv_sds'``: guidance by the MV-LDM itself (joint multi-view
+        RGB-D SDS). ``kind='sds'``: single-view SDS++ whose 2-D guidance is
+        the MV-LDM run as a 1-view model with zeroed depth-latent, raymap
+        and mask channels: VP-noisy latents at a DDPM timestep (the
+        scaled-linear table) are taken to the VE form, denoised at
+        ``_t_cond(sigma)`` and read out as eps. ``overrides`` set the
+        refiner's fields (``total_iterations``, ``img_size``, ...).
+        """
+        from .ops.schedulers import make_ddim
+        from .refiners import GSRefinerSDSPlusPlus, MultiviewSDSPPRefiner
+
+        system = self.mvldm
+        model = system.model.requires_grad_(False)
+
+        def encode_fn(images):          # (V, 3, H, W) -> (V, 4, h, w)
+            return model.encode_image(images[None])[0]
+
+        def decode_fn(latents):         # (V, 4, h, w) -> (V, 3, H, W)
+            return model.decode_latent(latents[None])[0].float()
+
+        if kind == "mv_sds":
+            kw = dict(encode_fn=encode_fn, decode_fn=decode_fn,
+                      denoise_fn=None, mvldm_system=system)
+            kw.update(overrides)
+            return MultiviewSDSPPRefiner(**kw)
+        if kind != "sds":
+            raise ValueError(f"unknown refiner kind: {kind}")
+        sched = system.schedule
+        n_cond = model.extra_latent_channel
+        ab_table = make_ddim(kind="scaled_linear").alphas_cumprod
+
+        def denoise_fn(lat_noisy_vp, t, emb):
+            """VP-noisy ``(B, 4, h, w)`` at integer ``t (B,)`` -> eps."""
+            ab = ab_table.to(lat_noisy_vp.device)[t][:, None, None, None]
+            sigma = torch.sqrt((1.0 - ab) / ab)
+            x_ve = lat_noisy_vp / sched.c_in(sigma)
+            B = lat_noisy_vp.shape[0]
+            pad = lat_noisy_vp.new_zeros((B, n_cond)
+                                         + lat_noisy_vp.shape[2:])
+            net_in = torch.cat([lat_noisy_vp, pad], dim=1)[:, None]
+            tc = system._t_cond(sigma[:, 0, 0, 0])[:, None]
+            out = model.denoise(net_in, emb, tc)[:, 0, :4].float()
+            x0 = sched.c_skip(sigma) * x_ve + sched.c_out(sigma) * out
+            return (x_ve - x0) / torch.clamp_min(sigma, 1e-8)
+
+        kw = dict(encode_fn=encode_fn, decode_fn=decode_fn,
+                  denoise_fn=denoise_fn)
+        kw.update(overrides)
+        return GSRefinerSDSPlusPlus(**kw)
 
     @staticmethod
     @torch.no_grad()

@@ -19,6 +19,7 @@ from prometheus_tpu.utils import gs_io as jax_gs_io
 from prometheus_tpu.utils import image as jax_image
 from prometheus_torch import inference
 from prometheus_torch.utils import gs_io, image
+from test_torch_sampler_modes import one_thread  # noqa: F401  (fixture)
 
 
 def gaussians(rng, n=300, batched=True):
@@ -117,7 +118,31 @@ def test_cli_writes_every_file(tmp_path):
         32, 66, 3)
     assert set(rec["timings"]) == {"encode_text", "trajectory", "sample",
                                    "decode_2d", "decode_gaussians", "render"}
-    for flag in (["--ckpt", "x"], ["--sampler", "dpmpp_2m"],
-                 ["--guidance_type", "text"], ["--refine", "sds"]):
+    for flag in (["--ckpt", "x"], ["--ref_image", "x.png"],
+                 ["--shard_views"]):
         with pytest.raises(SystemExit):
             inference.parse_args(["--prompt", "x"] + flag)
+
+
+@pytest.mark.usefixtures("one_thread")
+@pytest.mark.parametrize("flags,refined", [
+    (["--refine", "mv_sds", "--refine_iters", "2"], True),
+    (["--sampler", "dpmpp_2m", "--guidance_type", "hybrid",
+      "--cfg_interval_frac", "0.5"], False),
+    (["--use_3d_mode_every_m_steps", "2"], False)])
+def test_cli_sampler_modes_and_refine(tmp_path, flags, refined):
+    args = inference.parse_args([
+        "--prompt", "a cabin", "--device", "cpu", "--small", "--num_steps",
+        "2", "--num_traj_steps", "4", "--render_size", "32", "--num_views",
+        "2", "--no_video", "--export_dir", str(tmp_path)] + flags)
+    (rec,) = inference.run(args)
+    out = tmp_path / "000_a_cabin"
+    files = {p.name for p in out.iterdir()}
+    assert {"gs_renders.png", "mv_images.png", "gaussians.ply"} <= files
+    assert ("gs_renders_refined.png" in files) == refined
+    assert ("refine" in rec["timings"]) == refined
+    if refined:
+        assert np.asarray(Image.open(out / "gs_renders_refined.png")).shape \
+            == (32, 66, 3)
+        assert rec["paths"]["renders_refined"].endswith(
+            "gs_renders_refined.png")

@@ -72,6 +72,16 @@ TRAIN_SHAPES = [(4, 1024, 16, 72), (16, 1024, 1, 512)]
 # A-bwd's D <= 64 variant, which no train step of the port reaches yet (the
 # U-Net's head dim), and D = 512 at the GS decoder's 8 latents
 BWD_SHAPES = TRAIN_SHAPES + [(2, 512, 20, 64), (8, 1024, 1, 512)]
+# kernel A's shapes on the refiners and the sampler's other modes: the
+# U-Net's 2-D sites (4, 8 or 24 latents of 32x32) and joint sites (1, 2 or
+# 3 CFG rows), the VAE's mid block over 4 latents
+MODE_SHAPES = [(4, 1024, 5, 64), (8, 1024, 5, 64), (24, 1024, 5, 64),
+               (1, 2048, 10, 64), (2, 1024, 10, 64), (3, 2048, 10, 64),
+               (1, 512, 20, 64), (3, 512, 20, 64), (4, 1024, 1, 512)]
+# A-bwd on the refiners: the SDS++ embedding gradient through the U-Net's
+# 2-D sites over 4 views, the pull loss through the VAE encoder's mid block
+# over 4 (SDS++) or 8 (MV-SDS++) latents
+REFINE_BWD_SHAPES = [(4, 1024, 5, 64), (4, 1024, 1, 512)]
 
 
 @pytest.fixture
@@ -188,7 +198,7 @@ def test_flash_tolerance_separates_rounding_from_faults(rng, t, d, block):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("shape", PATH_SHAPES + SMALL_SHAPES)
+@pytest.mark.parametrize("shape", PATH_SHAPES + SMALL_SHAPES + MODE_SHAPES)
 def test_flash_kernel_matches_plain_on_card(shape):
     need_card()
     g = torch.Generator(device="cuda").manual_seed(0)
@@ -351,7 +361,7 @@ def test_flash_bwd_tolerance_separates_rounding_from_faults(rng, t, d, block):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("shape", BWD_SHAPES)
+@pytest.mark.parametrize("shape", BWD_SHAPES + REFINE_BWD_SHAPES)
 def test_flash_bwd_kernel_matches_plain_on_card(shape):
     need_card()
     g = torch.Generator(device="cuda").manual_seed(0)
@@ -798,3 +808,24 @@ def test_flash_bwd_512_groups_on_card(monkeypatch):
     assert FLASH_ATTN_BWD.launches == before + 1
     for a, b in zip(grouped, whole):
         assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("scales,opacity", COMPOSITE_SCENES)
+def test_composite_plain_independent_of_threads(rng, scales, opacity):
+    """The plain version of kernel B gives the same result on 1 and on 4
+    threads (its chunk sums are float64 and elementwise, so no BLAS
+    blocking decides their order): within 1e-7."""
+    counts = rng.integers(0, 1025, size=96).tolist() + EDGE_COUNTS
+    data, counts = splat_worklists(rng, counts, grid_w=8,
+                                   tiles_per_view=len(counts),
+                                   scales=scales, opacity=opacity)
+    threads = torch.get_num_threads()
+    try:
+        outs = []
+        for n in (1, 4):
+            torch.set_num_threads(n)
+            outs.append(composite_tiles_plain(data, counts, 8, len(counts)))
+    finally:
+        torch.set_num_threads(threads)
+    assert float((outs[0] - outs[1]).abs().max()) <= 1e-7
+    assert float(outs[0][:, 4].max()) > 0.5

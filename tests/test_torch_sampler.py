@@ -45,8 +45,6 @@ def test_vprediction_schedule_matches_jax():
         np.testing.assert_allclose(getattr(tsch, name)(st).numpy(),
                                    np.asarray(getattr(jsch, name)(s)),
                                    rtol=1e-6, err_msg=name)
-    with pytest.raises(NotImplementedError):
-        ts.make_schedule("edm")
 
 
 def test_euler_step_and_cfg_match_jax(rng):
@@ -83,10 +81,7 @@ def tiny_mvldm():
         jnp.zeros((1, 77, 64)), jnp.zeros((1, n)), jnp.asarray(cams),
         method=JaxMVLDM.init_everything)
     model = MVLDMModel(**TINY_MVLDM)
-    unused = load_jax_params(model, params)
-    assert unused and all(k.startswith(("vae/encoder",
-                                        "vae/quant_conv"))
-                          for k in unused)
+    assert load_jax_params(model, params) == []   # the VAE encoder too
     return jmodel, params, model.eval(), cams
 
 
@@ -119,13 +114,3 @@ def test_sample_core_and_decode_match_jax(tiny_mvldm, steps, tol):
     assert img.shape == (1, 2, 3, 32, 32) and dep.shape == (1, 2, 1, 32, 32)
     assert scaled_err(img.numpy(), ref_img) <= tol
     assert scaled_err(dep.numpy(), ref_dep) <= tol
-
-
-@pytest.mark.parametrize("guidance_type", ["text", "pose", "hybrid"])
-def test_unported_guidance_types_raise(tiny_mvldm, guidance_type):
-    _, _, model, cams = tiny_mvldm
-    emb = torch.zeros(1, 77, 64)
-    with pytest.raises(NotImplementedError, match="not ported"):
-        MVLDMSystem(model=model).sample(
-            torch.from_numpy(cams.copy()), emb, emb, num_inference_steps=1,
-            guidance_type=guidance_type, latent_hw=8)
