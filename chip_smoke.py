@@ -81,7 +81,29 @@ Phases (any failure ends the script with a non-zero exit):
    worklists (and, for C, the upstream gradients) of the last counted
    train step, each timed with its bound counted from the pairs they walk
    and keep;
-13. print the ``kernels`` JSON line (each kernel's ``launches`` from the
+13. build the flagship stage-2 trainer (``prometheus_torch.train``:
+    SD-2.1 U-Net with checkpointed blocks, frozen VAE and CLIP ViT-H text
+    tower, bf16-mixed, AdamW with a bf16 first moment, EMA of the trained
+    parameters; random weights from a seed) and run 3 ``--joint_sv`` steps
+    on synthetic batches of 8 scenes x 8 views at 256x256 plus 2
+    single-view images a scene (the batch drops to 4, 2, 1 only if 8 does
+    not fit, and says so). Prints cold and warm step seconds, the CUDA-event
+    stages, loss, ``grad_norm``, the sigma-bucket counts, peak memory and
+    the launch counters of one warm step (A and A-bwd must be > 0), and
+    checks finite loss and gradients, that every trained leaf that starts
+    nonzero moved, that every VAE and text-tower parameter is bit-unchanged,
+    that the first moments are bf16 and that the EMA covers exactly the
+    trained parameters; profiles one more warm step;
+14. 2 stage-2 steps with ``--joint_sv --render_loss`` (random GS decoder and
+    LPIPS) at the largest batch that fits, with the same checks and B and C
+    launched; the csort pairs dropped by its render; B and C held on that
+    step's own worklists and upstream gradients; A and A-bwd held and timed
+    at every attention shape the stage-2 steps recorded that no earlier
+    phase holds;
+15. 3 steps of the TrajDiT stage at flagship width, and a save -> restore
+    round trip of a ``--small`` stage-2 train state on the card, bit-equal
+    for every tensor (the bf16 first moments included);
+16. print the ``kernels`` JSON line (each kernel's ``launches`` from the
     path that runs it: ``generate`` without cameras for A and B, the train
     step for A-bwd and C, and every path's counts under
     ``launches_by_path``; B's and C's entries also hold their checks on
@@ -193,6 +215,11 @@ TRAIN_STEPS, TRAIN_BATCHES = 3, (4, 2, 1)
 MODE_STEPS = 8
 REFINE_MV_ITERS, REFINE_MV_INTERVAL, REFINE_SDS_ITERS = 30, 10, 10
 CLI_REFINE_ITERS = 10
+# stage-2 train steps with --joint_sv (one cold, two warm) and the batch
+# sizes tried in turn (the configuration's 8, cut only if it does not fit);
+# the --render_loss steps; the flagship TrajDiT stage's steps
+MVLDM_STEPS, MVLDM_BATCHES, RENDER_STEPS = 3, (8, 4, 2, 1), 2
+TRAJ_TRAIN_STEPS = 3
 
 
 def log(msg: str) -> None:
@@ -742,8 +769,12 @@ def hold_last_binning() -> dict:
 
     def held(proj, colors, opacities, img_h, img_w, tile_size, capacity,
              max_tiles):
-        last.update(proj=proj, img_h=img_h, img_w=img_w,
-                    tile_size=tile_size, max_tiles=max_tiles)
+        # detached: the held projection must not keep a step's autograd
+        # graph alive (a step that runs out of memory never frees it)
+        last.update(proj=type(proj)(*(None if f is None else f.detach()
+                                      for f in proj)),
+                    img_h=img_h, img_w=img_w, tile_size=tile_size,
+                    max_tiles=max_tiles)
         return bin_views(proj, colors, opacities, img_h, img_w, tile_size,
                          capacity, max_tiles)
 
@@ -1203,11 +1234,16 @@ def phase_cli_refine(pipe, card: str, shapes: dict) -> dict:
     return dict(wall_s=wall, stages_s=rec["timings"], launches=launches)
 
 
-def phase_new_attention_shapes(shapes: dict) -> tuple:
-    """Kernels A and A-bwd at every shape the new paths gave them that the
-    attention phases do not already hold."""
+def phase_new_attention_shapes(shapes: dict, held: tuple = (),
+                               seed: int = 6) -> tuple:
+    """Kernels A and A-bwd at every shape the recorded paths gave them that
+    the attention phases (and the rows of ``held``: forward, backward) do
+    not already hold."""
     held_fwd = {s for s, _ in ATTN_SHAPES}
     held_bwd = {s for s, _ in ATTN_BWD_SHAPES}
+    if held:
+        held_fwd |= {tuple(r["shape"]) for r in held[0]}
+        held_bwd |= {tuple(r["shape"]) for r in held[1]}
     where = lambda paths: "recorded on " + ", ".join(sorted(paths))
     fwd = [(s, where(p)) for s, p in sorted(shapes["fwd"].items())
            if s not in held_fwd]
@@ -1217,7 +1253,8 @@ def phase_new_attention_shapes(shapes: dict) -> tuple:
         f"{s} {where(p)}" for s, p in sorted(shapes["fwd"].items()))
         + "; backward " + "; ".join(
         f"{s} {where(p)}" for s, p in sorted(shapes["bwd"].items())))
-    return attention_rows(fwd, seed=6), attention_bwd_rows(bwd, seed=7)
+    return (attention_rows(fwd, seed=seed),
+            attention_bwd_rows(bwd, seed=seed + 1))
 
 
 def scene_tuple(gaussians):
@@ -1379,7 +1416,7 @@ def checksums(tensors: dict) -> dict:
 
 def instrument(trainer):
     """Watch the train step without changing what it runs or adding a
-    synchronisation: CUDA events at the end of the loss (``system.loss``),
+    synchronisation: CUDA events at the end of the loss (``loss_fn``),
     at the start and end of the optimizer's step (backward and clipping
     lie before it, the EMA after it) and around kernel C's launch, and a
     hold on kernel C's last inputs (the worklists, upstream gradients and
@@ -1395,14 +1432,14 @@ def instrument(trainer):
         marks[name] = torch.cuda.Event(enable_timing=True)
         marks[name].record()
 
-    loss = trainer.system.loss
+    loss = trainer.loss_fn
 
-    def loss_marked(*args, **kwargs):
-        out = loss(*args, **kwargs)
+    def loss_marked(batch):
+        out = loss(batch)
         record("forward")
         return out
 
-    trainer.system.loss = loss_marked
+    trainer.loss_fn = loss_marked
     opt = trainer.state.optimizer
     opt.register_step_pre_hook(lambda *_: record("backward"))
     opt.register_step_post_hook(lambda *_: record("adamw"))
@@ -1421,40 +1458,50 @@ def instrument(trainer):
     return marks, record, captured
 
 
-def run_train_steps(trainer, marks, record) -> dict:
-    """``TRAIN_STEPS`` steps on fresh synthetic batches (made on the card
-    before each step, outside its time); the launch counters are set to 0
-    just before the last (warm) step and read just after it. Each step's
-    stages are device-timeline ms between the events of ``instrument``."""
+def run_train_steps(trainer, marks, record, trained: dict,
+                    steps: int = TRAIN_STEPS, shapes: dict | None = None,
+                    path: str | None = None) -> dict:
+    """``steps`` steps on fresh synthetic batches (made on the card before
+    each step, outside its time); the launch counters are set to 0 just
+    before the last (warm) step and read just after it, and the attention
+    shapes of the steps are recorded under ``path``. Each step's stages are
+    device-timeline ms between the events of ``instrument``. ``trained``:
+    the parameters whose movement is reported."""
     import torch
 
     model = trainer.state.model
-    trained = {n: p for n, p in model.named_parameters()
-               if not n.startswith(("vae.encoder", "vae.quant_conv"))}
     before = checksums(trained)
     state_before = checksums(dict(model.named_buffers()))
     torch.cuda.reset_peak_memory_stats()
-    steps = []
-    for i in range(TRAIN_STEPS):
+    out = []
+    for i in range(steps):
         batch = trainer.batch()
         torch.cuda.synchronize()
-        if i == TRAIN_STEPS - 1:
+        if i == steps - 1:
             zero_counts()
+        if shapes is not None:
+            shapes["path"] = path
+        marks.pop("kernel C start", None)
         t0 = time.perf_counter()
         record("start")
         m = trainer.step(batch)
         record("end")
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
-        launches = read_counts() if i == TRAIN_STEPS - 1 else None
+        if shapes is not None:
+            shapes["path"] = None
+        launches = read_counts() if i == steps - 1 else None
         stages = ("start", "forward", "backward", "adamw", "end")
         stage_ms = {b: marks[a].elapsed_time(marks[b])
                     for a, b in zip(stages, stages[1:])}
         stage_ms["ema"] = stage_ms.pop("end")
-        stage_ms["kernel C (in backward)"] = marks["kernel C start"] \
-            .elapsed_time(marks["kernel C end"])
-        steps.append(dict(seconds=seconds, stage_ms=stage_ms,
-                          metrics={k: float(v) for k, v in m.items()}))
+        if "kernel C start" in marks:
+            stage_ms["kernel C (in backward)"] = marks["kernel C start"] \
+                .elapsed_time(marks["kernel C end"])
+        out.append(dict(seconds=seconds, stage_ms=stage_ms,
+                        metrics={k: float(v) for k, v in m.items()}))
+        del batch, m
+    steps = out
     grads_finite = all(bool(torch.isfinite(p.grad).all())
                        for p in model.parameters() if p.grad is not None)
     after = checksums(trained)
@@ -1463,6 +1510,7 @@ def run_train_steps(trainer, marks, record) -> dict:
     return dict(steps=steps, launches=launches,
                 peak=torch.cuda.max_memory_allocated(),
                 grads_finite=grads_finite, moved=moved, n_trained=len(trained),
+                started_nonzero=[n for n in trained if before[n][1] > 0],
                 state_moved=[n for n in state_after
                              if state_after[n] != state_before[n]],
                 n_state=len(state_after))
@@ -1486,8 +1534,10 @@ def phase_train(seed: int, binning: dict):
         n_params = sum(p.numel() for p in trainer.state.model.parameters())
         log(f"phase build_trainer: {time.perf_counter() - t0:.1f} s, "
             f"{n_params / 1e9:.3f}B parameters (fp32), batch {batch}")
+        trained = {n: p for n, p in trainer.state.model.named_parameters()
+                   if not n.startswith(("vae.encoder", "vae.quant_conv"))}
         try:
-            res = run_train_steps(trainer, marks, record)
+            res = run_train_steps(trainer, marks, record, trained)
             stats = binning_stats(binning)
             break
         except torch.cuda.OutOfMemoryError as e:
@@ -1544,7 +1594,244 @@ def phase_train(seed: int, binning: dict):
     return trainer, marks, res["launches"], captured["args"], stats
 
 
+def forget_path(shapes: dict, path: str) -> None:
+    """Drop ``path`` from the recorded attention shapes (a run that did not
+    fit in device memory)."""
+    shapes["path"] = None
+    for kind in ("fwd", "bwd"):
+        for shape, paths in list(shapes[kind].items()):
+            paths.discard(path)
+            if not paths:
+                del shapes[kind][shape]
+
+
+def train_fitting(label: str, build, steps: int, shapes: dict, path: str):
+    """Build a trainer with each of ``MVLDM_BATCHES`` in turn and run
+    ``steps`` steps on the first batch that fits in device memory. Holds a
+    copy of the frozen parameters to check them against after the steps.
+    Returns ``(trainer, marks, captured, frozen, res, batch)``."""
+    import gc
+
+    import torch
+
+    for batch in MVLDM_BATCHES:
+        t0 = time.perf_counter()
+        trainer = build(batch)
+        marks, record, captured = instrument(trainer)
+        named = dict(trainer.state.model.named_parameters())
+        frozen = {n: p.detach().clone() for n, p in named.items()
+                  if not p.requires_grad}
+        trained = {n: p for n, p in named.items() if p.requires_grad}
+        torch.cuda.synchronize()
+        log(f"phase build {label}: {time.perf_counter() - t0:.1f} s, "
+            f"{sum(p.numel() for p in trained.values()) / 1e9:.3f}B trained "
+            f"and {sum(p.numel() for p in frozen.values()) / 1e9:.3f}B "
+            f"frozen parameters (fp32), batch {batch}")
+        try:
+            res = run_train_steps(trainer, marks, record, trained, steps,
+                                  shapes, path)
+            return trainer, marks, captured, frozen, res, batch
+        except torch.cuda.OutOfMemoryError as e:
+            log(f"{label} at batch {batch} does not fit in device memory: "
+                f"{str(e).splitlines()[0]}")
+        forget_path(shapes, path)
+        trainer = marks = record = captured = frozen = trained = named = None
+        gc.collect()
+        torch.cuda.empty_cache()
+    raise RuntimeError(f"{label} does not fit even at batch 1")
+
+
+def report_mvldm(label: str, trainer, frozen: dict, res: dict, batch: int,
+                 need: tuple) -> None:
+    """Print the stage-2 steps and check them: finite loss and gradients,
+    every trained leaf that starts nonzero moved, the frozen VAE and text
+    tower bit-unchanged, bf16 first moments, an EMA of exactly the trained
+    parameters, and the kernels in ``need`` launched by the warm step."""
+    import torch
+
+    cfg = trainer.cfg
+    cut = "" if batch == cfg["batch_size"] else (
+        f" (BATCH CUT from {cfg['batch_size']} to {batch}: the configuration's"
+        f" batch does not fit in device memory)")
+    for i, st in enumerate(res["steps"]):
+        met = st["metrics"]
+        counts = {k: int(v) for k, v in met.items() if k.endswith("_cnt")
+                  and v}
+        log(f"{label} step {i} ({'cold' if i == 0 else 'warm'}): "
+            f"{st['seconds']:.3f} s; device-timeline stages " + " ".join(
+                f"{k} {v:.1f}ms" for k, v in st["stage_ms"].items())
+            + f"; loss {met['loss']:.5g} grad_norm {met['grad_norm']:.5g}; "
+            + " ".join(f"{k} {v:.5g}" for k, v in met.items()
+                       if not k.startswith(("loss_sig", "sv_loss_sig"))
+                       and k not in ("loss", "grad_norm"))
+            + f"; sigma-bucket counts {counts}")
+    warm = [st["seconds"] for st in res["steps"][1:]]
+    log(f"{label} (batch {batch} x {cfg['num_views']} views at "
+        f"{cfg['image_size']}^2){cut}: cold {res['steps'][0]['seconds']:.3f}"
+        " s, warm " + "/".join(f"{w:.3f}" for w in warm) + " s; peak memory "
+        f"{res['peak'] / 2**30:.2f} GiB; launches in the last warm step "
+        f"{res['launches']}; trained leaves moved {len(res['moved'])}/"
+        f"{res['n_trained']}")
+    for st in res["steps"]:
+        for k in ("loss", "grad_norm"):
+            if not math.isfinite(st["metrics"][k]):
+                raise RuntimeError(f"{label}: {k} is not finite")
+    if not res["grads_finite"]:
+        raise RuntimeError(f"{label}: non-finite gradients")
+    still = sorted(set(res["started_nonzero"]) - set(res["moved"]))
+    if still:
+        raise RuntimeError(f"{label}: trained leaves that did not move: "
+                           f"{still[:5]}")
+    model = trainer.state.model
+    named = dict(model.named_parameters())
+    changed = [n for n, p in frozen.items() if not torch.equal(p, named[n])]
+    if changed or not frozen:
+        raise RuntimeError(f"{label}: frozen parameters changed: "
+                           f"{changed[:5]}")
+    if any(not n.startswith(("vae.", "text_encoder.")) for n in frozen):
+        raise RuntimeError(f"{label}: a U-Net parameter is frozen")
+    opt = trainer.state.optimizer
+    mu = [st["exp_avg"].dtype for st in opt.state.values()]
+    if not mu or any(d != torch.bfloat16 for d in mu):
+        raise RuntimeError(f"{label}: first moments are not bf16: "
+                           f"{set(mu)}")
+    if set(trainer.state.ema_params) != {n for n, p in named.items()
+                                         if p.requires_grad}:
+        raise RuntimeError(f"{label}: the EMA does not cover exactly the "
+                           "trained parameters")
+    for name in need:
+        if res["launches"][name] <= 0:
+            raise RuntimeError(f"{name} was not launched by {label}")
+    log(f"{label}: frozen VAE and text tower bit-unchanged ({len(frozen)} "
+        f"tensors), first moments bf16 ({len(mu)}), EMA of the "
+        f"{len(trainer.state.ema_params)} trained tensors")
+
+
+def phase_train_mvldm(seed: int, shapes: dict, binning: dict) -> dict:
+    """Flagship stage-2 training: 3 steps with ``--joint_sv`` at the largest
+    batch that fits (8 scenes x 8 views at 256^2 and 2 single-view images a
+    scene), then 2 steps with ``--joint_sv --render_loss``, with the
+    render step's kernels B and C held on its own worklists; one warm
+    step of the first run under the profiler."""
+    import gc
+
+    import torch
+
+    from prometheus_torch.train import build_mvldm_trainer
+
+    out = {}
+    attn = ("flash_attn_fwd", "flash_attn_bwd")
+    trainer, marks, _, frozen, res, batch = train_fitting(
+        "stage-2 train step (--joint_sv)",
+        lambda b: build_mvldm_trainer(device="cuda", seed=seed, batch_size=b,
+                                      joint_sv=True),
+        MVLDM_STEPS, shapes, "train_mvldm")
+    report_mvldm("stage-2 train step (--joint_sv)", trainer, frozen, res,
+                 batch, attn)
+    _, by_class = profile_run("warm stage-2 train step (--joint_sv)",
+                              trainer.step, "profile_train_mvldm.json")
+    out["joint_sv"] = dict(batch=batch, steps=res["steps"], peak=res["peak"],
+                           launches=res["launches"], profile_ms=by_class)
+    del trainer, marks, frozen, res
+    gc.collect()                      # the trainer's step closes over it
+    torch.cuda.empty_cache()
+    trainer, marks, captured, frozen, res, batch = train_fitting(
+        "stage-2 train step (--joint_sv --render_loss)",
+        lambda b: build_mvldm_trainer(device="cuda", seed=seed, batch_size=b,
+                                      joint_sv=True, render_loss=True),
+        RENDER_STEPS, shapes, "train_mvldm_render_loss")
+    report_mvldm("stage-2 train step (--joint_sv --render_loss)", trainer,
+                 frozen, res, batch, attn + ("composite_fwd",
+                                             "composite_bwd"))
+    stats = binning_stats(binning)
+    log(f"csort of the last render-loss step's render ({stats['views']} "
+        f"views at 256^2): csort_pairs_dropped "
+        f"{stats['csort_pairs_dropped']} of {stats['instances_needed']:.0f} "
+        f"pairs needed, csort_tier_overflow {stats['csort_tier_overflow']}")
+    out["render_loss"] = dict(batch=batch, steps=res["steps"],
+                              peak=res["peak"], launches=res["launches"],
+                              csort=stats)
+    out["c_args"] = captured["args"]
+    del trainer, marks, frozen, res, captured
+    gc.collect()
+    torch.cuda.empty_cache()
+    (LOG_DIR / "train_mvldm.json").write_text(json.dumps(
+        {k: v for k, v in out.items() if k != "c_args"}, indent=1))
+    return out
+
+
+def phase_train_trajdit_and_checkpoint(seed: int) -> dict:
+    """3 steps of the TrajDiT stage at flagship width, and a save -> restore
+    round trip of a ``--small`` stage-2 state on the card, bit-equal for
+    every tensor (the bf16 first moments included)."""
+    import gc
+
+    import torch
+
+    from prometheus_torch.checkpoint import (restore_checkpoint,
+                                             save_checkpoint)
+    from prometheus_torch.train import (build_mvldm_trainer,
+                                        build_trajdit_trainer)
+
+    trainer = build_trajdit_trainer(device="cuda", seed=seed)
+    n = sum(p.numel() for p in trainer.state.model.parameters())
+    torch.cuda.reset_peak_memory_stats()
+    steps = []
+    for i in range(TRAJ_TRAIN_STEPS):
+        batch = trainer.batch()
+        torch.cuda.synchronize()
+        if i == TRAJ_TRAIN_STEPS - 1:
+            zero_counts()
+        t0 = time.perf_counter()
+        m = trainer.step(batch)
+        torch.cuda.synchronize()
+        steps.append(dict(seconds=time.perf_counter() - t0,
+                          metrics={k: float(v) for k, v in m.items()}))
+    launches = read_counts()
+    log(f"TrajDiT stage ({n / 1e6:.1f}M parameters, batch "
+        f"{trainer.batch_size} x 29 cameras): " + "; ".join(
+            f"step {i} {st['seconds']:.3f} s loss {st['metrics']['loss']:.5g}"
+            f" grad_norm {st['metrics']['grad_norm']:.5g}"
+            for i, st in enumerate(steps))
+        + f"; peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} "
+        f"GiB; launches in the last step {launches}")
+    for st in steps:
+        if not all(map(math.isfinite, st["metrics"].values())):
+            raise RuntimeError("TrajDiT stage: a metric is not finite")
+    del trainer
+    gc.collect()
+    small = build_mvldm_trainer(small=True, device="cuda", seed=seed,
+                                joint_sv=True)
+    small.step()
+    path = save_checkpoint(str(LOG_DIR / "ckpt_round_trip"), small.state, 1)
+    fresh = build_mvldm_trainer(small=True, device="cuda", seed=seed + 1,
+                                joint_sv=True)
+    restore_checkpoint(path, fresh.state)
+    pairs = [(f"model.{n}", a, fresh.state.model.state_dict()[n])
+             for n, a in small.state.model.state_dict().items()]
+    pairs += [(f"ema.{n}", a, fresh.state.ema_params[n])
+              for n, a in small.state.ema_params.items()]
+    for (n, p), q in zip(small.state.model.named_parameters(),
+                         fresh.state.model.parameters()):
+        if p in small.state.optimizer.state:
+            for k, a in small.state.optimizer.state[p].items():
+                pairs.append((f"opt.{n}.{k}", a,
+                              fresh.state.optimizer.state[q][k]))
+    bad = [n for n, a, b in pairs if a.dtype != b.dtype or a.device != b.device
+           or not torch.equal(a, b)]
+    n_bf16 = sum(1 for n, a, _ in pairs if a.dtype == torch.bfloat16)
+    log(f"checkpoint round trip of a --small stage-2 state on the card: "
+        f"{len(pairs)} tensors ({n_bf16} bf16 first moments), "
+        f"{len(pairs) - len(bad)} bit-equal, step {fresh.state.step}")
+    if bad or fresh.state.step != small.state.step or not n_bf16:
+        raise RuntimeError(f"checkpoint round trip: {bad[:5]} differ")
+    shutil.rmtree(LOG_DIR / "ckpt_round_trip", ignore_errors=True)
+    return dict(steps=steps, launches=launches, tensors=len(pairs))
+
+
 def main() -> int:
+    import gc
+
     if not (ROOT / "prometheus_torch" / "__init__.py").exists():
         print("chip_smoke.py must run from a checkout of the repository "
               "(prometheus_torch/ not found beside it)", file=sys.stderr)
@@ -1597,6 +1884,7 @@ def main() -> int:
         + f"{marks['kernel C start'].elapsed_time(marks['kernel C end']):.3f}"
         + " ms")
     del trainer
+    gc.collect()                      # the trainer's step closes over it
     torch.cuda.empty_cache()
     # kernels B and C once more, on the worklists (and, for C, the upstream
     # gradients) of the last counted train step
@@ -1606,12 +1894,35 @@ def main() -> int:
     entry_c["on_train_step"] = check_composite_bwd(
         "the train step's own worklists and upstream gradients", *c_args)
     del c_args, data, counts
+    torch.cuda.empty_cache()
+    # stage 2: the flagship MV-LDM steps, their new attention shapes, B and
+    # C on the render-loss step's worklists; the TrajDiT stage; checkpoints
+    mvldm = phase_train_mvldm(SEED, shapes, binning)
+    c_args = mvldm.pop("c_args")
+    data, _, counts, grid_w, tpv, _ = c_args
+    entry_b["on_train_mvldm_render_loss"] = check_composite_fwd(
+        "the stage-2 render-loss step's own worklists", data, counts, grid_w,
+        tpv)
+    entry_c["on_train_mvldm_render_loss"] = check_composite_bwd(
+        "the stage-2 render-loss step's own worklists and upstream "
+        "gradients", *c_args)
+    del c_args, data, counts
+    torch.cuda.empty_cache()
+    fwd_rows, bwd_rows = phase_new_attention_shapes(
+        shapes, (entry_a["on_new_shapes"], entry_abwd["on_new_shapes"]),
+        seed=8)
+    entry_a["on_new_shapes"] += fwd_rows
+    entry_abwd["on_new_shapes"] += bwd_rows
+    traj_train = phase_train_trajdit_and_checkpoint(SEED)
     paths = {"generate": gen_launches, "generate_trajectory": traj_launches,
              "cli": cli["launches"], "train_step": train_launches,
              **{name: m["launches"] for name, m in modes.items()},
              "refine_mv_sds": refine["mv_sds"]["launches"],
              "refine_sds": refine["sds"]["launches"],
-             "cli_refine": cli_refine["launches"]}
+             "cli_refine": cli_refine["launches"],
+             "train_mvldm": mvldm["joint_sv"]["launches"],
+             "train_mvldm_render_loss": mvldm["render_loss"]["launches"],
+             "train_trajdit": traj_train["launches"]}
     for entry, launches in ((entry_a, traj_launches),
                             (entry_b, traj_launches),
                             (entry_abwd, train_launches),
@@ -1626,13 +1937,15 @@ def main() -> int:
         "composite_fwd"]
     log("csort_pairs_dropped: generate " + str(
         gen_dropped["csort_pairs_dropped"]) + ", train step "
-        + str(train_dropped["csort_pairs_dropped"]))
+        + str(train_dropped["csort_pairs_dropped"]) + ", stage-2 render-loss "
+        "step " + str(mvldm["render_loss"]["csort"]["csort_pairs_dropped"]))
     log(f"total {time.perf_counter() - t_start:.1f} s")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "shape",
             "launches_by_path")
     extra = ("on_train_step", "on_orbit_chunk", "on_trained_stats",
              "on_refine_iteration", "on_new_shapes",
+             "on_train_mvldm_render_loss",
              "launches_per_refine_iteration", "launches_per_orbit_video",
              "psnr_vs_exact_db")
     entries = (entry_a, entry_b, entry_abwd, entry_c)

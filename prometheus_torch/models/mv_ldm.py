@@ -8,6 +8,9 @@ concatenates each view's low-res Plücker raymap onto the noisy RGB-D
 latents, repeats the text embeddings per view, flattens the views into the
 U-Net's batch with ``num_frames = N`` (joint cross-view attention), and
 returns the first 8 output channels (RGB latent 4 + depth latent 4).
+``use_checkpoint`` recomputes the U-Net's blocks in a training backward;
+``in_channels`` overrides the U-Net's input width (14 for the ``vanilla``
+noise type, which has no view-mask channel; the JAX conv infers it).
 """
 from __future__ import annotations
 
@@ -31,18 +34,21 @@ class MVLDMModel(nn.Module):
                  channel_mult: tuple = (1, 2, 4, 4), num_res_blocks: int = 2,
                  num_head_channels: int = 64, clip_layers: int = 23,
                  clip_width: int = 1024, vae_ch: int = 128,
-                 vae_ch_mult: tuple = (1, 2, 4, 4)):
+                 vae_ch_mult: tuple = (1, 2, 4, 4), use_checkpoint: bool = True,
+                 in_channels: int | None = None):
         super().__init__()
         self.image_size = image_size
         self.extra_latent_channel = extra_latent_channel
         self.vae_ch_mult = tuple(vae_ch_mult)
         io_ch = latent_channel + extra_latent_channel        # 15
         self.unet = MultiViewUNet(
-            in_channels=io_ch, out_channels=io_ch,
+            in_channels=io_ch if in_channels is None else in_channels,
+            out_channels=io_ch,
             model_channels=model_channels, num_res_blocks=num_res_blocks,
             channel_mult=channel_mult, num_head_channels=num_head_channels,
             context_dim=context_dim,
-            disable_3d_attentions=disable_3d_attentions)
+            disable_3d_attentions=disable_3d_attentions,
+            use_checkpoint=use_checkpoint)
         self.vae = AutoencoderKL(embed_dim=latent_channel, ch=vae_ch,
                                  ch_mult=vae_ch_mult, with_encoder=True)
         self.text_encoder = CLIPTextModel(width=clip_width,

@@ -9,6 +9,13 @@ are flattened into one sequence so the views attend jointly; text
 cross-attention stays per view. ``disable_3d_attentions`` (16 sites: 6
 encoder, 1 middle, 9 decoder) keeps the highest-resolution sites 2-D.
 Input and output NCHW ``(B*F, C, H, W)``.
+
+With ``use_checkpoint`` (the JAX module's per-block ``nn.remat``, policy
+``full``) each ``ResBlock`` and ``SpatialTransformer3D`` call of a module in
+training mode with gradients enabled runs under
+``torch.utils.checkpoint``: its activations are recomputed in the backward
+(so kernel A runs twice at every attention site of a train step). Inference
+(``torch.no_grad``, or a module in eval mode) runs the blocks directly.
 """
 from __future__ import annotations
 
@@ -17,6 +24,7 @@ from typing import Sequence
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..ops.attention import scaled_dot_product_attention
 from .layers import GroupNorm32, conv3x3, timestep_embedding, upsample2x
@@ -202,8 +210,10 @@ class MultiViewUNet(nn.Module):
                  num_head_channels: int = 64, context_dim: int = 1024,
                  transformer_depth: int = 1,
                  disable_3d_attentions: Sequence[int] = (
-                     1, 1, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 1, 1, 1)):
+                     1, 1, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 1, 1, 1),
+                 use_checkpoint: bool = True):
         super().__init__()
+        self.use_checkpoint = use_checkpoint
         self.model_channels = model_channels
         self.channel_mult = tuple(channel_mult)
         self.num_res_blocks = num_res_blocks
@@ -276,6 +286,15 @@ class MultiViewUNet(nn.Module):
         ctx_dim)``; ``text_kv``: ``{site: ((k, v), ...)}`` from
         ``precompute_text_kv``."""
         dtype = self.conv_in.weight.dtype
+        remat = (self.use_checkpoint and self.training
+                 and torch.is_grad_enabled())
+
+        def run(block, *args):
+            if remat:
+                return checkpoint(block, *args, use_reentrant=False,
+                                  preserve_rng_state=False)
+            return block(*args)
+
         emb = self.time_embed(
             timestep_embedding(timesteps, self.model_channels).to(dtype))
         context = context.to(dtype)
@@ -287,11 +306,11 @@ class MultiViewUNet(nn.Module):
             elif kind == "pop":
                 h = torch.cat([h, skips.pop()], dim=1)
             elif kind == "res":
-                h = getattr(self, name)(h, emb)
+                h = run(getattr(self, name), h, emb)
             elif kind == "attn":
                 kv = text_kv.get(name) if text_kv is not None else None
-                h = getattr(self, name)(
-                    h, context, kv, num_frames if self.is_3d[name] else 1)
+                h = run(getattr(self, name), h, context, kv,
+                        num_frames if self.is_3d[name] else 1)
             else:                                   # down / up
                 h = getattr(self, name)(h)
         return self.conv_out(F.silu(self.out_norm(h)))

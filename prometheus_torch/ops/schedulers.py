@@ -6,7 +6,8 @@ exploding); callers scale by ``c_in`` before the network and read
 betas, zero-terminal-SNR rescale, v-prediction preconditioning; the
 flagship), ``eprediction`` (scaled-linear betas, epsilon preconditioning)
 and ``edm`` (Karras sigmas, or the high-noise exponential ladder). The
-samplers step by Euler or by DPM-Solver++(2M).
+samplers step by Euler or by DPM-Solver++(2M); training draws its sigmas
+with ``sample_train_sigmas``.
 
 ``DDIMSchedule`` is the alpha-bar form of TrajDiT's deterministic
 sample-prediction sampler (``make_ddim``: scaled-linear betas, optionally
@@ -95,8 +96,30 @@ class Schedule:
         sd = self.sigma_data
         return (s**2 + sd**2) / (s * sd) ** 2
 
+    def sample_train_sigmas(self, shape, generator: torch.Generator | None = None,
+                            device: torch.device | str | None = None
+                            ) -> torch.Tensor:
+        """Training noise levels: the table's sigma at a uniform integer
+        timestep in ``[0, num_train_timesteps)``, or without a table
+        (``edm``) ``exp(p_mean + p_std * N(0, 1))``; float32."""
+        if self.train_sigmas is not None:
+            t = torch.randint(0, self.num_train_timesteps, tuple(shape),
+                              generator=generator, device=device)
+            return torch.from_numpy(self.train_sigmas).to(t.device)[t]
+        return torch.exp(self.p_mean + self.p_std * torch.randn(
+            tuple(shape), generator=generator, device=device))
+
+    def add_noise(self, x0, noise, sigma):
+        """Variance-exploding noising; apply ``c_in`` before the network."""
+        return x0 + sigma * noise
+
     def denoise_output_to_x0(self, x_t, model_out, sigma):
         return self.c_skip(sigma) * x_t + self.c_out(sigma) * model_out
+
+    def x0_to_target(self, x_t, x0, sigma):
+        """The network's regression target for ``x0`` (the inverse of the
+        x0 readout)."""
+        return (x0 - self.c_skip(sigma) * x_t) / self.c_out(sigma)
 
     def inference_sigmas(self, num_steps: int,
                          ladder: str = "default") -> torch.Tensor:

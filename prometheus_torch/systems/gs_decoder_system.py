@@ -5,8 +5,9 @@ The frozen VAE encoder embeds the input views (RGB and pseudo-depth); the
 trainable cross-view DiT and VAE decoder emit pixel-aligned gaussians; the
 NOVEL views are rendered and supervised with MSE and the
 scale-and-shift-invariant disparity loss (and an opacity entropy term whose
-weight is 0 by default). LPIPS is not ported: the stage-1 entry point trains
-without it.
+weight is 0 by default). The stage-1 loss has no LPIPS term: the JAX
+trainer builds this system without one (LPIPS, ``models/lpips.py``, serves
+the stage-2 rendering loss).
 
 Encoding noise is an argument, not a key: ``noise (B, N_in, 4, h, w)``
 standard-normal, or None for the posterior's mode. As in the JAX system,

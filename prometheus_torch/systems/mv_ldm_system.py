@@ -17,6 +17,14 @@ reference's) or DPM-Solver++(2M) over a Karras ladder; ``cfg_interval_frac``
 guides only the first, high-noise fraction of the steps. 3D mode
 (``sample_with_3d_mode``) replaces every m-th step's prediction by the
 re-encoded render of the gaussians it decodes to.
+
+Training (``multi_view_loss``, ``single_view_loss``, ``rendering_loss``) is
+the JAX system's. Its random draws (one sigma per scene, the denoising and
+encoding noise, the reference views, the per-scene pose and text dropout)
+come from a ``torch.Generator`` or, for parity, from a ``draws`` dict the
+caller fills. With ``compute_dtype`` bf16 the networks run under autocast
+(bf16 compute, fp32 parameters); the preconditioning, losses and metrics
+run in fp32. The frozen VAE encodes under ``torch.no_grad``.
 """
 from __future__ import annotations
 
@@ -25,12 +33,15 @@ import math
 from typing import Callable
 
 import torch
+import torch.nn.functional as F
 
 from ..models.mv_ldm import MVLDMModel
 from ..models.unet_mv import precompute_text_kv
-from ..ops.gaussian import render_gaussians
+from ..ops.gaussian import convert_gaussians, render_gaussians
 from ..ops.schedulers import Schedule, make_schedule
 from ..utils.rays import raymap as make_raymap
+from .depth_loss import scale_and_shift_invariant_loss
+from .gs_decoder_system import psnr
 
 # each guidance type's CFG stack: the (text, pose) of each row, c for the
 # conditional and u for the unconditional embedding
@@ -44,10 +55,13 @@ SAMPLERS = ("euler", "dpmpp_2m")
 class MVLDMSystem:
     """Sampler around ``MVLDMModel``.
 
-    ``adjust_sigma_on_n`` divides the ladder by ``sqrt(num_pred_views /
-    N)``; ``timestep_type`` is ``continuous`` (``t = 0.25 log(sigma)``, the
-    flagship) or ``discrete`` (the training timestep whose sigma is the
-    first at or above it).
+    ``adjust_sigma_on_n`` divides the ladder (and the training sigmas) by
+    ``sqrt(num_pred_views / N)``; ``timestep_type`` is ``continuous`` (``t
+    = 0.25 log(sigma)``, the flagship) or ``discrete`` (the training
+    timestep whose sigma is the first at or above it). ``noise_type``
+    ``view_cond`` adds the view-mask channel to the conditioning,
+    ``vanilla`` does not. The training loss logs per-scene sums and counts
+    in the ``log10(sigma)`` buckets of ``sigma_bucket_edges``.
     """
 
     model: MVLDMModel
@@ -57,16 +71,24 @@ class MVLDMSystem:
     num_pred_views: int = 8
     adjust_sigma_on_n: bool = False
     timestep_type: str = "continuous"
+    noise_type: str = "view_cond"
+    sigma_bucket_edges: tuple = (-2.0, -1.0, -0.5, 0.0, 0.5, 1.0, 2.0)
+    compute_dtype: torch.dtype = torch.float32
+
+    def _autocast(self, device: torch.device):
+        return torch.autocast(device_type=device.type, dtype=self.compute_dtype,
+                              enabled=self.compute_dtype != torch.float32)
 
     def _pose_embeddings(self, cameras: torch.Tensor, h: int, w: int,
                          view_mask: torch.Tensor | None = None):
         """``(B, N, 18)`` -> cond / uncond pose maps ``(B, N, 7, h, w)``:
-        the raymap plus the view mask (zero unless given); the uncond map is
-        all zeros."""
+        the raymap plus, for ``view_cond``, the view mask (zero unless
+        given); the uncond map is all zeros."""
         rm = make_raymap(cameras, h, w)
-        mask = (torch.zeros_like(rm[:, :, :1]) if view_mask is None
-                else view_mask.to(rm))
-        rm = torch.cat([rm, mask], dim=2)
+        if self.noise_type == "view_cond":
+            mask = (torch.zeros_like(rm[:, :, :1]) if view_mask is None
+                    else view_mask.to(rm))
+            rm = torch.cat([rm, mask], dim=2)
         return rm, torch.zeros_like(rm)
 
     def _t_cond(self, sigma: torch.Tensor) -> torch.Tensor:
@@ -309,3 +331,219 @@ class MVLDMSystem:
     @torch.no_grad()
     def encode_text(self, input_ids: torch.Tensor) -> torch.Tensor:
         return self.model.encode_text(input_ids)
+
+    # -- training ----------------------------------------------------------
+    def draw_multi_view(self, generator: torch.Generator | None, B: int,
+                        N: int, hw: int, *, num_ref_views: int = 0,
+                        drop_pose_p: float = 0.1, drop_text_p: float = 0.1,
+                        sample_posterior: bool = True,
+                        device: torch.device | str = "cpu") -> dict:
+        """The random draws of one ``multi_view_loss``, from ``generator``
+        with the JAX loss's distributions: ``sigmas (B,)`` (before the
+        sigma adjustment), standard-normal ``noise (B, N, 8, hw, hw)``,
+        ``ref_views`` (the first ``num_ref_views`` of a random permutation
+        of the N views), ``keep_pose (B,)`` and ``keep_text (B,)`` (a
+        uniform draw at or above the drop probability), and
+        ``encode_noise (B, 2N, 4, hw, hw)`` for the posterior sample (None:
+        its mode)."""
+        g = dict(generator=generator, device=device)
+        c = self.latent_channel
+        return {
+            "sigmas": self.schedule.sample_train_sigmas((B,), **g),
+            "noise": torch.randn(B, N, 2 * c, hw, hw, **g),
+            "ref_views": torch.randperm(N, **g)[:num_ref_views],
+            "keep_pose": torch.rand(B, **g) >= drop_pose_p,
+            "keep_text": torch.rand(B, **g) >= drop_text_p,
+            "encode_noise": (torch.randn(B, 2 * N, c, hw, hw, **g)
+                             if sample_posterior else None),
+        }
+
+    def multi_view_loss(self, batch: dict, *, num_ref_views: int = 0,
+                        drop_pose_p: float = 0.1, drop_text_p: float = 0.1,
+                        lambda_mse: float = 1.0,
+                        lambda_mse_depth: float = 1.0,
+                        return_aux: bool = False, draws: dict | None = None,
+                        generator: torch.Generator | None = None,
+                        sample_posterior: bool = True):
+        """The latent denoising loss on a multi-view batch: ``images_mv (B,
+        N, 3, H, W)`` in [-1, 1], ``cameras_mv (B, N, 18)``, ``depths_mv
+        (B, N, 1, H, W)`` pseudo-disparity in [0, 1], ``text_emb`` and
+        ``uncond_text_emb (B, L, D)``.
+
+        One encode of the 2N images (the depths repeated to 3 channels) by
+        the frozen VAE; one sigma per scene; reference views (``view_cond``
+        only) enter clean and are left out of the loss; per-scene pose and
+        text dropout. The loss is the ``loss_weight``-weighted MSE of the
+        x0 prediction on the image latents (channels 0-3) and the depth
+        latents (4-7). ``draws`` (see ``draw_multi_view``) replaces the
+        draws from ``generator``. Returns ``(loss, metrics)``, with
+        ``return_aux`` also ``{"x0_pred": (B, N, 8, h, w)}``.
+        """
+        images, cameras = batch["images_mv"], batch["cameras_mv"]
+        depths = batch["depths_mv"]
+        B, N = images.shape[:2]
+        dev = images.device
+        hw = images.shape[-1] // 2 ** (len(self.model.vae_ch_mult) - 1)
+        if draws is None:
+            draws = self.draw_multi_view(
+                generator, B, N, hw, num_ref_views=num_ref_views,
+                drop_pose_p=drop_pose_p, drop_text_p=drop_text_p,
+                sample_posterior=sample_posterior, device=dev)
+
+        depths_in = (depths * 2.0 - 1.0).expand(-1, -1, 3, -1, -1)
+        with torch.no_grad(), self._autocast(dev):
+            lat = self.model.encode_image(torch.cat([images, depths_in], 1),
+                                          draws["encode_noise"])
+        x0 = torch.cat([lat[:, :N], lat[:, N:]], dim=2).float()
+        h, w = x0.shape[-2:]
+
+        is_ref = torch.zeros(N, dtype=torch.bool, device=dev)
+        if self.noise_type == "view_cond" and num_ref_views > 0:
+            is_ref[draws["ref_views"].to(dev)] = True
+        ref_mask = is_ref[None, :, None, None, None]
+
+        sigmas = draws["sigmas"].to(device=dev, dtype=torch.float32)
+        if self.adjust_sigma_on_n:
+            sigmas = sigmas / math.sqrt(self.num_pred_views / N)
+        sig = sigmas[:, None, None, None, None]
+        t_cond = self._t_cond(sigmas)[:, None].expand(B, N)
+
+        noisy = self.schedule.add_noise(x0, draws["noise"].to(x0), sig)
+        net_in = torch.where(ref_mask, x0, self.schedule.c_in(sig) * noisy)
+        keep_pose = draws["keep_pose"].to(dev)[:, None, None, None, None]
+        cond = make_raymap(cameras.float(), h, w) * keep_pose
+        if self.noise_type == "view_cond":
+            cond = torch.cat([cond, is_ref.to(cond.dtype)[
+                None, :, None, None, None].expand(B, N, 1, h, w)], dim=2)
+        net_in = torch.cat([net_in, cond], dim=2)
+        keep_text = draws["keep_text"].to(dev)[:, None, None]
+        text_emb = torch.where(keep_text, batch["text_emb"],
+                               batch["uncond_text_emb"])
+
+        with self._autocast(dev):
+            pred = self.model.denoise(net_in, text_emb, t_cond)
+        x0_pred = self.schedule.denoise_output_to_x0(noisy, pred.float(), sig)
+        x0_pred = torch.where(ref_mask, x0, x0_pred)
+
+        wgt = self.schedule.loss_weight(sig)
+        tgt = (~is_ref).to(x0.dtype)[None, :, None, None, None]
+        denom = torch.clamp_min(tgt.sum() * B / N, 1.0)
+
+        def masked_mse(a, b):
+            return (wgt * (a - b) ** 2 * tgt).sum() / (denom * a.shape[2]
+                                                        * h * w)
+
+        loss_mse = masked_mse(x0_pred[:, :, 0:4], x0[:, :, 0:4])
+        loss_mse_depth = masked_mse(x0_pred[:, :, 4:8], x0[:, :, 4:8])
+        loss = lambda_mse * loss_mse + lambda_mse_depth * loss_mse_depth
+        metrics = {"loss_mv_latent_mse": loss_mse.detach(),
+                   "loss_mv_latent_mse_depth": loss_mse_depth.detach()}
+
+        # per-scene loss sums and counts by log10(sigma) bucket: the loss
+        # varies ~25x with the drawn sigma alone
+        with torch.no_grad():
+            d = (x0_pred - x0) ** 2
+            err = lambda_mse * d[:, :, 0:4].sum(2) \
+                + lambda_mse_depth * d[:, :, 4:8].sum(2)        # (B, N, h, w)
+            per_scene = (wgt[:, :, 0] * err * tgt[:, :, 0]).sum((1, 2, 3))
+            per_scene_n = tgt[:, :, 0].expand(err.shape).sum((1, 2, 3))
+            per_scene = per_scene / (torch.clamp_min(per_scene_n, 1.0) / 4.0)
+            edges = torch.tensor(self.sigma_bucket_edges, device=dev)
+            bucket = torch.searchsorted(
+                edges, torch.log10(torch.clamp_min(sigmas, 1e-8)))
+            for k in range(len(self.sigma_bucket_edges) + 1):
+                in_k = (bucket == k).to(torch.float32)
+                metrics[f"loss_sig_b{k}_sum"] = (per_scene * in_k).sum()
+                metrics[f"loss_sig_b{k}_cnt"] = in_k.sum()
+        if return_aux:
+            return loss, metrics, {"x0_pred": x0_pred}
+        return loss, metrics
+
+    def single_view_loss(self, batch: dict, dummy_camera: torch.Tensor, *,
+                         draws: dict | None = None,
+                         generator: torch.Generator | None = None, **kw):
+        """The T2I batch: each of ``images_sv (B, M, 3, H, W)`` (with
+        ``depths_sv``) is a 1-view scene with the fixed ``dummy_camera
+        (18,)`` and its pose always dropped; ``text_emb_sv`` is per image
+        ``(B, M, L, D)`` or shared ``(B, L, D)``. Metrics carry the ``sv_``
+        prefix."""
+        images = batch["images_sv"]
+        B, M = images.shape[:2]
+        emb = batch["text_emb_sv"]
+        emb = (emb.reshape((B * M,) + emb.shape[2:]) if emb.dim() == 4
+               else emb.repeat_interleave(M, dim=0))
+        sv_batch = {
+            "images_mv": images.reshape((B * M, 1) + images.shape[2:]),
+            "depths_mv": batch["depths_sv"].reshape(
+                (B * M, 1) + batch["depths_sv"].shape[2:]),
+            "cameras_mv": dummy_camera.to(images.device).expand(B * M, 1, 18),
+            "text_emb": emb,
+            "uncond_text_emb": batch["uncond_text_emb"].repeat_interleave(
+                M, dim=0),
+        }
+        if draws is not None:            # pose is always dropped
+            draws = {**draws, "keep_pose": torch.zeros_like(
+                draws["keep_pose"], dtype=torch.bool)}
+        loss, metrics = self.multi_view_loss(
+            sv_batch, drop_pose_p=1.0, draws=draws, generator=generator, **kw)
+        return loss, {f"sv_{k}": v for k, v in metrics.items()}
+
+    def rendering_loss(self, gs_system, latents_pred: torch.Tensor,
+                       cameras: torch.Tensor, images_gt: torch.Tensor,
+                       depths_gt: torch.Tensor, cameras_gt: torch.Tensor, *,
+                       rendering_size: int = 256, lambda_mse: float = 1.0,
+                       lambda_lpips: float = 0.0, lambda_depth: float = 0.5,
+                       lpips_fn: Callable | None = None):
+        """The end-to-end rendering loss through the frozen GS decoder of
+        ``gs_system`` (eval mode: its EMANorms read their magnitudes) and
+        the renderer: ``latents_pred (B, n, 8, h, w)`` x0 predictions of
+        ``cameras (B, n, 18)`` -> gaussians -> renders of ``cameras_gt`` at
+        ``rendering_size``, held against ``images_gt`` and the
+        pseudo-disparity ``depths_gt`` (resized bilinearly, antialiased
+        when they shrink). Image MSE, ``psnr_gs``, LPIPS (``lpips_fn``,
+        when ``lambda_lpips``) and the scale-and-shift-invariant loss on
+        the rendered disparity. Gradients reach ``latents_pred`` only.
+        Returns ``(loss, metrics)``."""
+        B, n, _, h, w = latents_pred.shape
+        rs = rendering_size
+        rm = make_raymap(cameras.float(), h, w).to(latents_pred.dtype)
+        with self._autocast(latents_pred.device):
+            raw = gs_system.model.decode_latent(
+                torch.cat([latents_pred, rm], dim=2))
+        gaussians = convert_gaussians(raw, cameras, **gs_system.gs_kwargs)
+        imgs, deps, _ = render_gaussians(cameras_gt, gaussians, h=rs, w=rs)
+        gt, gt_disp = resize_views(images_gt.float(), rs), \
+            resize_views(depths_gt.float(), rs)
+
+        metrics = {}
+        loss_mse = ((imgs - gt) ** 2).mean()
+        metrics["loss_gs_image_mse"] = loss_mse.detach()
+        metrics["psnr_gs"] = psnr(imgs.detach(), gt)
+        loss = lambda_mse * loss_mse
+        if lambda_lpips and lpips_fn is not None:
+            with self._autocast(imgs.device):
+                loss_lpips = lpips_fn(imgs, gt).float()
+            metrics["loss_gs_image_lpips"] = loss_lpips.detach()
+            loss = loss + lambda_lpips * loss_lpips
+        if lambda_depth:
+            pred_disp = 1.0 / torch.clamp(deps, 0.1, 100.0)
+            valid = (deps > 0.1).to(torch.float32)
+            bn = B * cameras_gt.shape[1]
+            loss_depth = scale_and_shift_invariant_loss(
+                pred_disp.reshape(bn, rs, rs), gt_disp.reshape(bn, rs, rs),
+                valid.reshape(bn, rs, rs))
+            metrics["loss_gs_depth"] = loss_depth.detach()
+            loss = loss + lambda_depth * loss_depth
+        return loss, metrics
+
+
+def resize_views(x: torch.Tensor, size: int) -> torch.Tensor:
+    """``(B, N, C, H, W)`` -> ``(B, N, C, size, size)``, bilinear with
+    half-pixel centres, antialiased when it shrinks (``jax.image.resize``'s
+    ``bilinear``); unchanged at ``size``."""
+    if x.shape[-2:] == (size, size):
+        return x
+    flat = x.reshape((-1,) + x.shape[2:])
+    out = F.interpolate(flat, size=(size, size), mode="bilinear",
+                        align_corners=False, antialias=True)
+    return out.reshape(x.shape[:3] + (size, size))

@@ -5,6 +5,10 @@ The DDIM state stays float32 for the whole loop: each step casts it to the
 model's dtype for the network and upcasts the prediction before the update,
 so a bf16 model never accumulates the 100 steps in bf16. The quaternion of
 every prediction is renormalised before the step.
+
+``loss`` is the training objective: sample-prediction MSE on camera tokens
+noised at a uniform integer timestep; ``t`` and ``noise`` are inputs for
+parity, drawn from a ``torch.Generator`` when absent.
 """
 from __future__ import annotations
 
@@ -12,7 +16,8 @@ import dataclasses
 
 import torch
 
-from ..models.traj_dit import TOKEN_DIM, TrajDiTModel, token_to_camera
+from ..models.traj_dit import (TOKEN_DIM, TrajDiTModel, camera_to_token,
+                               token_to_camera)
 from ..ops.schedulers import DDIMSchedule, make_ddim
 
 
@@ -58,3 +63,26 @@ class TrajDiTSystem:
         tokens = self.sample_tokens(text_embeddings, generator,
                                     num_inference_steps, noise)
         return token_to_camera(tokens, image_size=image_size)
+
+    def loss(self, cameras: torch.Tensor, text_embeddings: torch.Tensor,
+             t: torch.Tensor | None = None, noise: torch.Tensor | None = None,
+             generator: torch.Generator | None = None,
+             compute_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+        """``cameras (B, 29, 18)``, ``text_embeddings (B, L, D)`` -> the
+        MSE of the model's sample prediction from ``sqrt(ab_t) tokens +
+        sqrt(1 - ab_t) noise``; ``t (B,)`` integer timesteps and standard
+        normal ``noise`` are drawn from ``generator`` unless given. The
+        model runs under autocast in ``compute_dtype``."""
+        tokens = camera_to_token(cameras.float())
+        B, dev = tokens.shape[0], tokens.device
+        if t is None:
+            t = torch.randint(0, self.schedule.num_train_timesteps, (B,),
+                              generator=generator, device=dev)
+        if noise is None:
+            noise = torch.randn(tokens.shape, generator=generator, device=dev)
+        ab = self.schedule.alphas_cumprod.to(dev)[t.to(dev)][:, None, None]
+        noisy = torch.sqrt(ab) * tokens + torch.sqrt(1 - ab) * noise.to(dev)
+        with torch.autocast(device_type=dev.type, dtype=compute_dtype,
+                            enabled=compute_dtype != torch.float32):
+            pred = self.model(noisy, text_embeddings, t.to(dev).float())
+        return ((pred.float() - tokens) ** 2).mean()

@@ -82,6 +82,13 @@ MODE_SHAPES = [(4, 1024, 5, 64), (8, 1024, 5, 64), (24, 1024, 5, 64),
 # 2-D sites over 4 views, the pull loss through the VAE encoder's mid block
 # over 4 (SDS++) or 8 (MV-SDS++) latents
 REFINE_BWD_SHAPES = [(4, 1024, 5, 64), (4, 1024, 1, 512)]
+# the flagship stage-2 train step at batch 8, forward and backward: the
+# U-Net's 2-D sites over 64 latents, its joint sites at levels 1 and 2 over
+# 8 scenes, and the GS decoder's DiT under --render_loss
+STAGE2_SHAPES = [(64, 1024, 5, 64), (8, 2048, 10, 64), (8, 512, 20, 64),
+                 (8, 2048, 16, 72)]
+# forward only: the frozen VAE encoder's mid block over 128 images
+STAGE2_FWD_SHAPES = [(128, 1024, 1, 512)]
 
 
 @pytest.fixture
@@ -198,7 +205,8 @@ def test_flash_tolerance_separates_rounding_from_faults(rng, t, d, block):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("shape", PATH_SHAPES + SMALL_SHAPES + MODE_SHAPES)
+@pytest.mark.parametrize("shape", PATH_SHAPES + SMALL_SHAPES + MODE_SHAPES
+                         + STAGE2_SHAPES + STAGE2_FWD_SHAPES)
 def test_flash_kernel_matches_plain_on_card(shape):
     need_card()
     g = torch.Generator(device="cuda").manual_seed(0)
@@ -361,7 +369,8 @@ def test_flash_bwd_tolerance_separates_rounding_from_faults(rng, t, d, block):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("shape", BWD_SHAPES + REFINE_BWD_SHAPES)
+@pytest.mark.parametrize("shape", BWD_SHAPES + REFINE_BWD_SHAPES
+                         + STAGE2_SHAPES)
 def test_flash_bwd_kernel_matches_plain_on_card(shape):
     need_card()
     g = torch.Generator(device="cuda").manual_seed(0)
