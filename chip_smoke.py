@@ -103,10 +103,37 @@ Phases (any failure ends the script with a non-zero exit):
 15. 3 steps of the TrajDiT stage at flagship width, and a save -> restore
     round trip of a ``--small`` stage-2 train state on the card, bit-equal
     for every tensor (the bf16 first moments included);
-16. print the ``kernels`` JSON line (each kernel's ``launches`` from the
+16. training from image files on disk through ``prometheus_torch.train``
+    (``parse_args``, ``build_trainer``, ``run``): a corpus written under
+    ``build/chip_smoke/scene_data/`` (16 DL3DV-layout scenes x 24 textured
+    720x960 JPEG frames with an ``annotation.pkl``, 8 MVImgNet-layout
+    scenes, 64 512x512 single-view JPEGs with captions), a config of the
+    production shape (a ``JointDataset`` of a ``ProbDataset`` over DL3DV
+    and MVImgNet, 0.6 / 0.4, and a ``Text2ImageDataset``) beside the port's
+    config groups, the loader's 4 worker processes, the tokenizer, the
+    frozen CLIP text tower and luminance depths. Flagship stage 2 at batch
+    8 x 8 views plus 4 single-view images a scene (the batch drops to 4, 2,
+    1 only if 8 does not fit, and says so), 4 steps with a ``--val_every
+    4`` snapshot: cold and warm step seconds beside phase 13's synthetic
+    warm step, the host share of each warm step spent waiting on the
+    loader, peak memory, the launches of each step and of the snapshot
+    (counters set to 0 just before each and read just after; A and A-bwd
+    in a warm step, A in the snapshot), finite loss and gradients, batches
+    that are not constant, and the ``val_mv_images`` / ``val_mv_views``
+    files; the loader's images per second with its worker processes,
+    with as many threads and with one thread. Stage 1 from disk (4 scenes
+    x (4 + 4) views, 3 steps, a ``--val_every 3`` snapshot: A, A-bwd, B and
+    C in a warm step, B in the snapshot, ``val_nvs_renders`` written, the
+    csort pairs dropped); one ``--small --debug`` stage-2 step; one TrajDiT
+    ``--synthetic --val_every 1`` step and its ``val_traj.png``. The
+    checkpoints of these runs are recorded, not written (a flagship
+    stage-2 state is ~14 GB). A and A-bwd are then held and timed at every
+    new shape these runs recorded;
+17. print the ``kernels`` JSON line (each kernel's ``launches`` from the
     path that runs it: ``generate`` without cameras for A and B, the train
     step for A-bwd and C, and every path's counts under
-    ``launches_by_path``; B's and C's entries also hold their checks on
+    ``launches_by_path``, the from-disk runs' warm steps and their
+    snapshots (``val_snapshot``) among them; B's and C's entries also hold their checks on
     the other worklists, B's its launches per orbit video and the
     ``psnr_vs_exact`` readings) and, last, the ``ok`` line.
 
@@ -118,6 +145,7 @@ from __future__ import annotations
 
 import json
 import math
+import os
 import re
 import shutil
 import statistics
@@ -220,10 +248,85 @@ CLI_REFINE_ITERS = 10
 # the --render_loss steps; the flagship TrajDiT stage's steps
 MVLDM_STEPS, MVLDM_BATCHES, RENDER_STEPS = 3, (8, 4, 2, 1), 2
 TRAJ_TRAIN_STEPS = 3
+# training from disk: the corpus (DL3DV-layout scenes x frames at 720x960,
+# MVImgNet-layout scenes, 512x512 single-view images), the stage-2 and
+# stage-1 steps (each run's snapshot at its last step), and the batches
+# the loader's rate is timed over
+DISK_SCENES, DISK_FRAMES, DISK_MVIMGNET, DISK_T2I = 16, 24, 8, 64
+DISK_MVLDM_STEPS, DISK_GS_STEPS, DISK_GS_BATCHES = 4, 3, (4, 2, 1)
+LOADER_BATCHES = 7
 
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+def adopt_orphans() -> None:
+    """Make this process the child subreaper of every process it starts
+    (Linux ``prctl(PR_SET_CHILD_SUBREAPER)``), so that a process whose
+    parent ends first, such as a loader worker of the fork server, becomes
+    this script's child and ``stop_processes`` waits for it too."""
+    import ctypes
+
+    try:
+        ctypes.CDLL(None, use_errno=True).prctl(36, 1, 0, 0, 0)
+    except (OSError, AttributeError):
+        pass
+
+
+def children() -> list:
+    """The pids whose parent is this process, zombies included."""
+    me, out = os.getpid(), []
+    for d in os.listdir("/proc"):
+        if not d.isdigit():
+            continue
+        try:
+            stat = Path(f"/proc/{d}/stat").read_text()
+        except OSError:
+            continue
+        if int(stat.rsplit(")", 1)[1].split()[1]) == me:
+            out.append(int(d))
+    return out
+
+
+def stop_processes(grace_s: float = 5.0) -> None:
+    """Stop every process this script started and wait for each, before it
+    exits. The loaders' iterators still alive shut their workers down, and
+    multiprocessing runs what it would at the interpreter's exit (its
+    finalizers, which unlink the queues' semaphores, and the end of its
+    daemonic children). The fork server and the resource tracker, which
+    would otherwise outlive the script until they read the end of their
+    pipes, are then asked to end by closing this process's end. Any child
+    still running after ``grace_s`` gets SIGTERM, and SIGKILL after twice
+    that."""
+    import gc
+    import signal
+    from multiprocessing import forkserver, resource_tracker, util
+
+    gc.collect()
+    loaders = sys.modules.get("torch.utils.data.dataloader")
+    if loaders is not None:
+        for obj in gc.get_objects():
+            if type(obj) is loaders._MultiProcessingDataLoaderIter:
+                obj._shutdown_workers()
+    util._exit_function()
+    for owner, attr in ((forkserver._forkserver, "_forkserver_alive_fd"),
+                        (resource_tracker._resource_tracker, "_fd")):
+        if getattr(owner, attr, None) is not None:
+            os.close(getattr(owner, attr))
+            setattr(owner, attr, None)
+    start = time.monotonic()
+    while rest := children():
+        waited = time.monotonic() - start
+        for pid in rest:
+            try:
+                if waited > grace_s:
+                    os.kill(pid, signal.SIGTERM if waited < 2 * grace_s
+                            else signal.SIGKILL)
+                os.waitpid(pid, os.WNOHANG)
+            except (ProcessLookupError, ChildProcessError):
+                pass
+        time.sleep(0.02)
 
 
 def card_line() -> str:
@@ -1829,6 +1932,455 @@ def phase_train_trajdit_and_checkpoint(seed: int) -> dict:
     return dict(steps=steps, launches=launches, tensors=len(pairs))
 
 
+def write_disk_corpus(root: Path, seed: int) -> dict:
+    """The corpus of the from-disk phase, written with numpy and PIL:
+    ``dl3dv/`` (``DISK_SCENES`` scenes of ``DISK_FRAMES`` textured 720x960
+    JPEG frames, an ``annotation.pkl`` with OpenGL orbit poses, pixel
+    intrinsics and captions), ``mvimgnet/`` (``DISK_MVIMGNET`` scenes with
+    OpenCV poses, one ``meta.json`` each) and ``sam1b/`` (``DISK_T2I``
+    512x512 JPEGs and an ``annotations.json`` of captions). Frames are
+    rolled copies of a few textures, encoded by a thread pool."""
+    import io
+    import pickle
+    from concurrent.futures import ThreadPoolExecutor
+
+    import numpy as np
+    from PIL import Image
+
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[0:720, 0:960].astype(np.float32)
+    bases = []
+    for _ in range(6):
+        f, ph = rng.uniform(0.01, 0.08, (3, 2)), rng.uniform(0, 6, 3)
+        img = np.stack([127 + 90 * np.sin(yy * f[c, 0] + ph[c])
+                        * np.cos(xx * f[c, 1]) for c in range(3)], -1)
+        img += rng.normal(0, 14, img.shape).astype(np.float32)
+        bases.append(np.clip(img, 0, 255).astype(np.uint8))
+    jobs = []                            # (path, base, dy, dx, crop)
+
+    def orbit(n, radius):
+        az = np.linspace(0.0, np.pi / 2, n)
+        eye = np.stack([radius * np.cos(az), 0.3 * np.ones(n),
+                        radius * np.sin(az)], -1)
+        z = eye / np.linalg.norm(eye, axis=-1, keepdims=True)
+        x = np.cross(np.broadcast_to([0.0, 1.0, 0.0], eye.shape), z)
+        x /= np.linalg.norm(x, axis=-1, keepdims=True)
+        return np.stack([x, np.cross(z, x), z, eye], -1)
+
+    def scenes(sub, n_scenes, opencv):
+        meta = {}
+        for s in range(n_scenes):
+            name = f"scene_{s:04d}"
+            (root / sub / name).mkdir(parents=True, exist_ok=True)
+            frames = []
+            for i in range(DISK_FRAMES):
+                frames.append(f"{name}/{i:05d}.jpg")
+                jobs.append((root / sub / frames[-1], (s + i) % len(bases),
+                             int(rng.integers(720)), int(rng.integers(960)),
+                             None))
+            poses = orbit(DISK_FRAMES, 2.0 + 0.1 * s)
+            if opencv:
+                poses = poses * np.asarray([1.0, -1.0, -1.0, 1.0])
+            meta[name] = {"frames": frames, "poses": poses.tolist(),
+                          "intrinsics": [800.0, 800.0, 480.0, 360.0],
+                          "captions": [f"a textured test scene {s}, seen "
+                                       f"from an orbit, take {k}"
+                                       for k in range(3)]}
+        return meta
+
+    dl3dv = scenes("dl3dv", DISK_SCENES, False)
+    (root / "dl3dv" / "annotation.pkl").write_bytes(pickle.dumps(dl3dv))
+    for name, m in scenes("mvimgnet", DISK_MVIMGNET, True).items():
+        (root / "mvimgnet" / name / "meta.json").write_text(json.dumps(m))
+    (root / "sam1b").mkdir(parents=True, exist_ok=True)
+    items = []
+    for i in range(DISK_T2I):
+        items.append({"file": f"img_{i:05d}.jpg",
+                      "caption": f"The image shows a test picture {i}"})
+        jobs.append((root / "sam1b" / items[-1]["file"], i % len(bases),
+                     int(rng.integers(720)), int(rng.integers(960)), 512))
+    (root / "sam1b" / "annotations.json").write_text(json.dumps(items))
+
+    def encode(job):
+        path, b, dy, dx, crop = job
+        img = np.roll(bases[b], (dy, dx), axis=(0, 1))
+        if crop:
+            img = img[:crop, :crop]
+        buf = io.BytesIO()
+        Image.fromarray(img).save(buf, format="JPEG", quality=90)
+        path.write_bytes(buf.getvalue())
+        return len(buf.getvalue())
+
+    with ThreadPoolExecutor(8) as pool:
+        nbytes = sum(pool.map(encode, jobs))
+    (root / "complete").write_text(str(len(jobs)))
+    return dict(files=len(jobs), bytes=nbytes)
+
+
+DISK_MVLDM_GROUP = """normalized_cameras: true
+use_caption: true
+num_input_views: ${training.num_input_views}
+num_novel_views: ${training.num_novel_views}
+image_size: ${image_size}
+train:
+  module: prometheus_torch.datasets.JointDataset
+  datasets:
+    - module: prometheus_torch.datasets.ProbDataset
+      datasets:
+        - module: prometheus_torch.datasets.DL3DV10KDataset
+          args: {root_dir: "${data_root}/dl3dv",
+                 annotation_path: "${data_root}/dl3dv/annotation.pkl",
+                 sample_rate: 7, scene_scale_threshold: 0.01}
+        - module: prometheus_torch.datasets.MVImgNetDataset
+          args: {root_dir: "${data_root}/mvimgnet", sample_rate: -1}
+      probs: [0.6, 0.4]
+    - module: prometheus_torch.datasets.Text2ImageDataset
+      args: {root_dir: "${data_root}/sam1b",
+             images_per_iter: "${training.single_view_num}"}
+"""
+
+
+DISK_GS_GROUP = """normalized_cameras: true
+use_caption: false
+num_input_views: ${training.num_input_views}
+num_novel_views: ${training.num_novel_views}
+image_size: ${image_size}
+train:
+  module: prometheus_torch.datasets.ProbDataset
+  datasets:
+    - module: prometheus_torch.datasets.DL3DV10KDataset
+      args: {root_dir: "${data_root}/dl3dv",
+             annotation_path: "${data_root}/dl3dv/annotation.pkl",
+             sample_rate: 7, scene_scale_threshold: 0.01}
+    - module: prometheus_torch.datasets.MVImgNetDataset
+      args: {root_dir: "${data_root}/mvimgnet", sample_rate: -1}
+  probs: [0.6, 0.4]
+"""
+
+
+def write_disk_configs(root: Path) -> Path:
+    """The port's config groups, plus ``dataset/chip_mvldm`` (the
+    production shape: a ``JointDataset`` of a ``ProbDataset`` over DL3DV
+    and MVImgNet, 0.6 / 0.4, and a ``Text2ImageDataset``) and
+    ``dataset/chip_gsdecoder`` (the ``ProbDataset`` alone, no captions)."""
+    shutil.rmtree(root, ignore_errors=True)
+    shutil.copytree(ROOT / "prometheus_torch" / "configs", root)
+    (root / "dataset" / "chip_mvldm.yaml").write_text(DISK_MVLDM_GROUP)
+    (root / "dataset" / "chip_gsdecoder.yaml").write_text(DISK_GS_GROUP)
+    return root / "config.yaml"
+
+
+def disk_run(label: str, argv: list, batches: tuple, shapes: dict,
+             path: str, binning: dict | None = None):
+    """Build a trainer through ``prometheus_torch.train`` (``parse_args``,
+    ``build_trainer``) and ``run`` it, with the first batch of ``batches``
+    that fits in device memory (``training.batch_size``), the launch
+    counters set to 0 just before each step and read just after it, and the
+    snapshot's counters likewise; each step's host seconds, from the
+    batch's fetch to the step's end on the card, go to the record's
+    ``timings`` with the seconds the batch waited on the loader;
+    checkpoints are recorded, not written (a flagship stage-2 state is
+    ~14 GB). Returns ``(trainer, batch, record)``."""
+    import gc
+
+    import torch
+
+    from prometheus_torch import train
+
+    for batch in batches:
+        ckpt = LOG_DIR / f"disk_{path}_b{batch}"
+        shutil.rmtree(ckpt, ignore_errors=True)
+        if "--override" in argv:
+            i = argv.index("--override") + 1
+            full = argv[:i] + [f"training.batch_size={batch}"] + argv[i:]
+        else:
+            full = argv + ["--batch_size", str(batch)]
+        args = train.parse_args(full + ["--ckpt_dir", str(ckpt)])
+        rec = dict(steps=[], timings=[], snapshot=None, saved=[],
+                   image_std=[], csort=[], convert=[], ckpt=ckpt)
+        t0 = time.perf_counter()
+        trainer = train.build_trainer(args)
+        rec["build_s"] = time.perf_counter() - t0
+        step, feed = trainer.train_step, trainer.make_batch
+
+        def counted_step(state, b, step=step):
+            zero_counts()
+            out = step(state, b)
+            rec["steps"].append(read_counts())
+            torch.cuda.synchronize()
+            t0, wait = rec.pop("fetch")
+            rec["timings"].append(dict(step=len(rec["timings"]),
+                                       seconds=time.perf_counter() - t0,
+                                       wait_s=wait))
+            if binning is not None:
+                rec["csort"].append(binning_stats(binning))
+            return out
+
+        def watched_batch(tr, feed=feed):
+            # the conversion on the host (the loader's wait taken out) and
+            # on the device (copies, CLIP, depths) between CUDA events
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ev[0].record()
+            t0 = time.perf_counter()
+            b = feed(tr)
+            wait = getattr(feed, "wait_s", 0.0)
+            host = time.perf_counter() - t0 - wait
+            ev[1].record()
+            rec["fetch"] = (t0, wait)
+            rec["convert"].append((host, ev))
+            rec["image_std"].append([b[k].float().std() for k in
+                                     ("images_mv", "images_sv") if k in b])
+            return b
+
+        def counted_snapshot(tr, step_, b, logger, snap=train.
+                             validation_snapshot):
+            zero_counts()
+            try:
+                snap(tr, step_, b, logger)
+            except Exception as e:
+                rec["snapshot_error"] = repr(e)
+                raise
+            finally:
+                rec["snapshot"] = read_counts()
+
+        trainer.train_step, trainer.make_batch = counted_step, watched_batch
+        save, snap = train.save_checkpoint, train.validation_snapshot
+        train.save_checkpoint = lambda d, state, s: rec["saved"].append(s)
+        train.validation_snapshot = counted_snapshot
+        shapes["path"] = path
+        torch.cuda.reset_peak_memory_stats()
+        try:
+            train.run(args, trainer)
+            rec["peak"] = torch.cuda.max_memory_allocated()
+            return trainer, batch, rec
+        except torch.cuda.OutOfMemoryError as e:
+            log(f"{label} at batch {batch} does not fit in device memory: "
+                f"{str(e).splitlines()[0]}")
+        finally:
+            train.save_checkpoint, train.validation_snapshot = save, snap
+            shapes["path"] = None
+        forget_path(shapes, path)
+        trainer = counted_step = watched_batch = feed = step = None
+        gc.collect()
+        torch.cuda.empty_cache()
+    raise RuntimeError(f"{label} does not fit even at batch 1")
+
+
+def report_disk_run(label: str, trainer, batch: int, rec: dict,
+                    need: tuple, snap_need: tuple, snapshot_files: tuple,
+                    synthetic_warm: list | None = None) -> dict:
+    """Print a from-disk run (cold and warm steps, the host share spent
+    waiting on the loader, peak memory, a warm step's and the snapshot's
+    launches) and check it: finite metrics and gradients, batches that are
+    not constant, the kernels in ``need`` (warm step) and ``snap_need``
+    (snapshot) launched, and the snapshot files written and not empty."""
+    import torch
+
+    cfg = trainer.cfg
+    cut = "" if batch == cfg["batch_size"] else (
+        f" (BATCH CUT from {cfg['batch_size']} to {batch}: the "
+        "configuration's batch does not fit in device memory)")
+    lines = [json.loads(ln) for ln in
+             (rec["ckpt"] / "metrics.jsonl").read_text().splitlines()]
+    timings = rec["timings"]
+    for st, ln in zip(timings, lines):
+        log(f"{label} step {st['step']}: {st['seconds']:.3f} s, waiting on "
+            f"the loader {st['wait_s']:.4f} s; loss {ln['loss']:.5g} "
+            f"grad_norm {ln['grad_norm']:.5g}")
+    warm = timings[1:]
+    share = [st["wait_s"] / st["seconds"] for st in warm]
+    stds = [[float(x) for x in b] for b in rec["image_std"]]
+    convert = [(host, ev[0].elapsed_time(ev[1]))
+               for host, ev in rec["convert"]]
+    log(f"{label} (batch {batch}){cut}: build {rec['build_s']:.1f} s; cold "
+        f"{timings[0]['seconds']:.3f} s (loader wait "
+        f"{timings[0]['wait_s']:.3f} s), warm "
+        + "/".join(f"{st['seconds']:.3f}" for st in warm) + " s"
+        + (" (synthetic warm " + "/".join(f"{w:.3f}" for w in
+                                          synthetic_warm) + " s)"
+           if synthetic_warm else "")
+        + "; host share of a warm step waiting on the loader "
+        + "/".join(f"{x:.4f}" for x in share)
+        + "; batch conversion (tokenize, copy, CLIP, depths) host ms / "
+        "device ms " + ", ".join(f"{1e3 * h:.1f}/{d:.1f}"
+                                 for h, d in convert)
+        + f"; peak memory {rec['peak'] / 2**30:.2f} GiB; launches in the "
+        f"last warm step {rec['steps'][-1]}; in the snapshot "
+        f"{rec['snapshot']}; image std per batch {stds}; checkpoints "
+        f"recorded at steps {rec['saved']}")
+    for ln in lines:
+        for k in ("loss", "grad_norm"):
+            if not math.isfinite(ln[k]):
+                raise RuntimeError(f"{label}: {k} is not finite")
+    if len(lines) != len(timings):
+        raise RuntimeError(f"{label}: {len(lines)} metrics lines for "
+                           f"{len(timings)} steps")
+    if not all(bool(torch.isfinite(p.grad).all()) for p in
+               trainer.state.model.parameters() if p.grad is not None):
+        raise RuntimeError(f"{label}: non-finite gradients")
+    if any(x < 0.05 for b in stds for x in b):
+        raise RuntimeError(f"{label}: a batch's images are constant: {stds}")
+    for name in need:
+        if rec["steps"][-1][name] <= 0:
+            raise RuntimeError(f"{name} was not launched by {label}")
+    if rec.get("snapshot_error") or rec["snapshot"] is None:
+        raise RuntimeError(f"{label}: the snapshot failed: "
+                           f"{rec.get('snapshot_error')}")
+    for name in snap_need:
+        if rec["snapshot"][name] <= 0:
+            raise RuntimeError(f"{name} was not launched by {label}'s "
+                               "snapshot")
+    for f in snapshot_files:
+        p = rec["ckpt"] / "snapshots" / f
+        if not p.exists() or p.stat().st_size == 0:
+            raise RuntimeError(f"{label}: snapshot {f} missing or empty")
+    log(f"{label}: snapshot files " + ", ".join(
+        f"{f} {(rec['ckpt'] / 'snapshots' / f).stat().st_size} B"
+        for f in snapshot_files))
+    return dict(batch=batch, steps=timings, wait_share=share,
+                convert_ms=convert,
+                peak=rec["peak"], launches=rec["steps"][-1],
+                snapshot_launches=rec["snapshot"], metrics=lines)
+
+
+def loader_rates(trainer, images_per_item: int) -> dict:
+    """The loader's images per second, with its worker processes (the
+    trainer's ``DataLoader``, timed from its first batch over the next
+    ``LOADER_BATCHES``, or the rest of an epoch) and, for the choice between
+    them, with as many threads, and one thread, on the same items."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    loader = trainer.feed.loader
+    workers = loader.num_workers
+    n = min(LOADER_BATCHES, len(loader) - 1)         # within one epoch
+    it = iter(loader)
+    next(it)
+    t0 = time.perf_counter()
+    for _ in range(n):
+        next(it)
+    procs = n * trainer.batch_size * images_per_item / (
+        time.perf_counter() - t0)
+    del it
+    ds = loader.dataset
+    items = list(range(n * trainer.batch_size))
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(workers) as pool:
+        list(pool.map(ds.__getitem__, items))
+    threads = len(items) * images_per_item / (time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    for i in items[:trainer.batch_size]:
+        ds[i]
+    one = trainer.batch_size * images_per_item / (time.perf_counter() - t0)
+    return dict(workers=workers, processes=procs, threads=threads,
+                one_thread=one)
+
+
+def phase_train_from_disk(seed: int, shapes: dict, binning: dict,
+                          synthetic_warm: list) -> dict:
+    """Training from image files on disk through ``prometheus_torch.train``
+    (the loader's worker processes, the tokenizer, the frozen CLIP text
+    tower, luminance depths): flagship stage 2 at the largest batch of
+    ``MVLDM_BATCHES`` that fits (8 scenes x 8 views at 256^2 plus
+    ``training.single_view_num`` = 4 single-view images a scene) for
+    ``DISK_MVLDM_STEPS`` steps with a ``--val_every`` snapshot at the last;
+    the loader's rate; stage 1 (4 scenes x (4 + 4) views) for
+    ``DISK_GS_STEPS`` steps with its snapshot; one ``--small --debug``
+    stage-2 step; one TrajDiT ``--synthetic --val_every 1`` step."""
+    import gc
+
+    import torch
+
+    data = LOG_DIR / "scene_data"
+    t0 = time.perf_counter()
+    if not (data / "complete").exists():
+        shutil.rmtree(data, ignore_errors=True)
+        corpus = write_disk_corpus(data, seed)
+        log(f"corpus written in {time.perf_counter() - t0:.1f} s: "
+            f"{corpus['files']} JPEGs, {corpus['bytes'] / 2**20:.1f} MiB")
+    cfg = write_disk_configs(LOG_DIR / "disk_configs")
+    common = ["--config", str(cfg), "--depth_teacher", "luminance",
+              "--log_every", "1", "--seed", str(seed), "--override",
+              f"data_root={data}"]
+    out = {}
+    trainer, batch, rec = disk_run(
+        "stage 2 from disk", common + [
+            "dataset=chip_mvldm", "--stage", "mvldm", "--max_steps",
+            str(DISK_MVLDM_STEPS), "--val_every", str(DISK_MVLDM_STEPS)],
+        MVLDM_BATCHES, shapes, "train_disk_mvldm")
+    step = DISK_MVLDM_STEPS
+    out["mvldm"] = report_disk_run(
+        "stage 2 from disk", trainer, batch, rec,
+        ("flash_attn_fwd", "flash_attn_bwd"), ("flash_attn_fwd",),
+        (f"{step:09d}_val_mv_images.png", f"{step:09d}_val_mv_views.gif"),
+        synthetic_warm)
+    per_item = trainer.cfg["num_views"] + trainer.cfg["images_per_iter"]
+    rates = loader_rates(trainer, per_item)
+    need = trainer.batch_size * per_item / statistics.median(
+        st["seconds"] for st in out["mvldm"]["steps"][1:])
+    log(f"loader: {rates['processes']:.1f} images/s with "
+        f"{rates['workers']} worker processes ({per_item} images of 256^2 "
+        f"an item from 720x960 and 512x512 JPEGs), {rates['threads']:.1f} "
+        f"with {rates['workers']} threads, {rates['one_thread']:.1f} in one "
+        f"thread; the warm steps consume {need:.1f} images/s")
+    out["loader"] = dict(rates, consumed=need, images_per_item=per_item)
+    del trainer, rec
+    gc.collect()
+    torch.cuda.empty_cache()
+    step = DISK_GS_STEPS
+    trainer, batch, rec = disk_run(
+        "stage 1 from disk", common + [
+            "dataset=chip_gsdecoder", "experiment=gsdecoder_exp", "--stage",
+            "gsdecoder", "--max_steps", str(step), "--val_every", str(step)],
+        DISK_GS_BATCHES, shapes, "train_disk_gsdecoder", binning)
+    out["gsdecoder"] = report_disk_run(
+        "stage 1 from disk", trainer, batch, rec,
+        ("flash_attn_fwd", "flash_attn_bwd", "composite_fwd",
+         "composite_bwd"), ("composite_fwd",),
+        (f"{step:09d}_val_nvs_renders.png",))
+    csort = rec["csort"][-1]
+    log(f"csort of stage 1's last step from disk ({csort['views']} views at "
+        f"256^2): csort_pairs_dropped {csort['csort_pairs_dropped']} of "
+        f"{csort['instances_needed']:.0f} pairs needed, csort_tier_overflow "
+        f"{csort['csort_tier_overflow']}")
+    out["gsdecoder"]["csort"] = csort
+    del trainer, rec
+    gc.collect()
+    torch.cuda.empty_cache()
+    trainer, _, rec = disk_run(
+        "stage 2 from disk --small --debug", common + [
+            "dataset=chip_mvldm", "image_size=32",
+            "training.num_input_views=2", "training.single_view_num=2",
+            "--stage", "mvldm",
+            "--small", "--debug", "--max_steps", "1"], (2,), shapes,
+        "train_disk_small_debug")
+    line = json.loads((rec["ckpt"] / "metrics.jsonl").read_text())
+    if not all(map(math.isfinite, line.values())) \
+            or torch.is_anomaly_enabled():
+        raise RuntimeError(f"--small --debug step: {line}")
+    log(f"stage 2 from disk --small --debug: loss {line['loss']:.5g}, "
+        f"{rec['timings'][0]['seconds']:.3f} s with anomaly detection")
+    del trainer, rec
+    gc.collect()
+    trainer, _, rec = disk_run(
+        "TrajDiT --synthetic --val_every 1", ["--stage", "trajdit",
+                                              "--synthetic", "--max_steps",
+                                              "1", "--val_every", "1",
+                                              "--seed", str(seed)],
+        (8,), shapes, "train_trajdit_snapshot")
+    png = rec["ckpt"] / "snapshots" / "000000001_val_traj.png"
+    if rec.get("snapshot_error") or not png.exists() \
+            or png.stat().st_size == 0:
+        raise RuntimeError(f"TrajDiT snapshot: {rec.get('snapshot_error')}")
+    log(f"TrajDiT --synthetic --val_every 1: {png.name} "
+        f"{png.stat().st_size} B; snapshot launches {rec['snapshot']}")
+    out["trajdit_snapshot"] = rec["snapshot"]
+    del trainer, rec
+    gc.collect()
+    torch.cuda.empty_cache()
+    (LOG_DIR / "train_disk.json").write_text(json.dumps(out, indent=1))
+    return out
+
+
 def main() -> int:
     import gc
 
@@ -1837,6 +2389,7 @@ def main() -> int:
               "(prometheus_torch/ not found beside it)", file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT))
+    adopt_orphans()
     import torch
 
     if not torch.cuda.is_available():
@@ -1914,6 +2467,18 @@ def main() -> int:
     entry_a["on_new_shapes"] += fwd_rows
     entry_abwd["on_new_shapes"] += bwd_rows
     traj_train = phase_train_trajdit_and_checkpoint(SEED)
+    # training from disk, and A and A-bwd at the new shapes it recorded
+    disk = phase_train_from_disk(
+        SEED, shapes, binning,
+        [st["seconds"] for st in mvldm["joint_sv"]["steps"][1:]])
+    fwd_rows, bwd_rows = phase_new_attention_shapes(
+        shapes, (entry_a["on_new_shapes"], entry_abwd["on_new_shapes"]),
+        seed=10)
+    entry_a["on_new_shapes"] += fwd_rows
+    entry_abwd["on_new_shapes"] += bwd_rows
+    snapshots = (disk["mvldm"]["snapshot_launches"],
+                 disk["gsdecoder"]["snapshot_launches"],
+                 disk["trajdit_snapshot"])
     paths = {"generate": gen_launches, "generate_trajectory": traj_launches,
              "cli": cli["launches"], "train_step": train_launches,
              **{name: m["launches"] for name, m in modes.items()},
@@ -1922,7 +2487,11 @@ def main() -> int:
              "cli_refine": cli_refine["launches"],
              "train_mvldm": mvldm["joint_sv"]["launches"],
              "train_mvldm_render_loss": mvldm["render_loss"]["launches"],
-             "train_trajdit": traj_train["launches"]}
+             "train_trajdit": traj_train["launches"],
+             "train_disk_mvldm": disk["mvldm"]["launches"],
+             "train_disk_gsdecoder": disk["gsdecoder"]["launches"],
+             "val_snapshot": {k: sum(c[k] for c in snapshots)
+                              for k in snapshots[0]}}
     for entry, launches in ((entry_a, traj_launches),
                             (entry_b, traj_launches),
                             (entry_abwd, train_launches),
@@ -1968,4 +2537,8 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    try:
+        code = main()
+    finally:
+        stop_processes()
+    sys.exit(code)

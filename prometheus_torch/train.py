@@ -1,41 +1,75 @@
-"""Training, the counterpart of the repo's ``train.py --synthetic``::
+"""Training, the counterpart of the repo's ``train.py``::
 
     python -m prometheus_torch.train --stage {mvldm,gsdecoder,trajdit} \\
-        --synthetic [--small] [--max_steps N] [--batch_size B] [--seed S] \\
-        [--log_every K] [--save_every K] [--ckpt_dir DIR] [--device cpu]
+        [--synthetic | --config CFG --override data_root=DIR ... \\
+         --depth_teacher luminance] \\
+        [--small] [--max_steps N] [--batch_size B] [--seed S] \\
+        [--log_every K] [--save_every K] [--val_every K] [--ckpt_dir DIR] \\
+        [--device cpu] [--debug]
         [--joint_sv] [--render_loss] [--gsdecoder_ckpt DIR]   # mvldm only
 
 Every stage builds its networks at the widths of
-``prometheus_tpu/configs`` (or the reduced ``--small`` widths of
-``train.py``) with seeded random weights, draws synthetic batches and its
-losses' random draws from one ``torch.Generator``, and runs the train step
+``prometheus_torch/configs`` (or the reduced ``--small`` widths of
+``train.py``) with seeded random weights, draws its synthetic batches
+(from disk, stage 1's encoder noise) and its losses' random draws from one
+``torch.Generator``, and runs the train step
 of ``parallel/train_step.py`` (clipping, AdamW, EMA), printing one JSON line
 of metrics every ``--log_every`` steps and at the last step, and appending
 it to ``<ckpt_dir>/metrics.jsonl``:
 
 - ``mvldm`` (stage 2, the default): ``MVLDMSystem.multi_view_loss`` on 8
-  views at 256^2; ``--joint_sv`` adds ``single_view_loss`` on 2 text-to-image
-  images a scene; ``--render_loss`` adds ``rendering_loss`` through a frozen
+  views at 256^2; ``single_view_loss`` on the text-to-image images of a
+  batch that carries them (``--joint_sv`` adds 2 a scene to a synthetic
+  batch); ``--render_loss`` adds ``rendering_loss`` through a frozen
   GS decoder (random, or the EMA weights of a stage-1 checkpoint of this
   package given by ``--gsdecoder_ckpt``) with LPIPS (random weights). The
   VAE and the CLIP text tower are frozen (out of the optimizer and the EMA);
   the first Adam moment is stored in bf16.
 - ``gsdecoder`` (stage 1): ``GSDecoderSystem.loss`` (MSE 1, depth 0.5,
   entropy 0, no LPIPS); every parameter trains, fp32 moments.
-- ``trajdit``: ``TrajDiTSystem.loss`` on 29-camera trajectories.
+- ``trajdit``: ``TrajDiTSystem.loss`` on 29-camera trajectories
+  (``--synthetic`` only: from disk the JAX trainer has no text embeddings
+  for it either).
+
+With ``--synthetic`` the batches are random tensors made on the device.
+Without it they come from image files on disk: the composed config
+(``config.py``; ``--config``, default ``prometheus_torch/configs/
+config.yaml``, and ``--override group=stem key=value ...``) names the
+dataset tree (``datasets/``), which the loader reads in worker processes.
+The trainer reads from it every key that ``train.py`` reads
+(``config_settings``: ``seed``, ``output_dir``, the optimizer, EMA,
+precision, resume and loss keys of ``training``, the experiment's
+schedule, and without ``--small`` the networks of ``algorithm`` and
+``gsdecoder``), taking the dicts below where it sets none and refusing a
+value the port cannot honour; ``--seed`` and ``--batch_size`` win. It
+tokenizes the captions, embeds them with the frozen CLIP text tower
+(stage 2), and makes the pseudo-depths with ``--depth_teacher
+luminance``: ``clip(mean_c(images) * 0.5 + 0.5, 0, 1)``.
+
+``--val_every K`` writes a snapshot every K steps with the EMA weights,
+under ``<ckpt_dir>/snapshots/``: mvldm a 20-step sample of the batch's
+first scene (``val_mv_images`` grid and ``val_mv_views`` GIF), gsdecoder
+the first scene's novel views (``val_nvs_renders``: ground truth,
+prediction and depth rows), trajdit a 20-step trajectory
+(``val_traj.png``); a failing snapshot is printed and the run goes on.
+``--debug`` turns on ``torch.autograd``'s anomaly detection and checks
+every batch for NaN and Inf before its step.
 
 Checkpoints (``checkpoint.py``) go to ``--ckpt_dir`` (default
-``./workdir/<stage>_ckpts``) every ``--save_every`` steps and at the end; a
-run resumes from the newest one there. It runs on the card unless
+``<output_dir>/<stage>_ckpts``, ``./workdir`` without a config) every
+``--save_every`` steps and at the end; a run resumes from the newest one
+there (unless the config's ``training.resume_from_checkpoint`` is not
+``latest``). It runs on the card unless
 ``--device cpu`` is given; on the card the networks compute in bf16 with
-fp32 parameters (``bf16-mixed``), on the CPU in fp32. Data on disk,
-``--val_every``, ``--sp_views``, ``--param_sharding fsdp``,
-``--depth_teacher`` and ``--debug`` are not ported yet (ROADMAP.md) and
-raise.
+fp32 parameters (``bf16-mixed``), on the CPU in fp32. ``--sp_views``,
+``--param_sharding fsdp`` and ``--depth_teacher da2`` (the JAX trainer's
+default, which needs DepthAnything-V2 weights) are not ported yet
+(ROADMAP.md) and raise.
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import os
@@ -46,6 +80,7 @@ import torch
 
 from .checkpoint import (latest_checkpoint, load_ema_weights_,
                          restore_checkpoint, save_checkpoint)
+from .config import DEFAULT_CONFIG, load_config
 from .models import GSDecoderModel, MVLDMModel, TrajDiTModel
 from .models.lpips import make_lpips_fn
 from .ops.schedulers import make_schedule
@@ -53,13 +88,16 @@ from .parallel import (TrainState, freeze_, frozen_components,
                        init_train_state, make_optimizer, make_train_step)
 from .systems import GSDecoderSystem, MVLDMSystem, TrajDiTSystem
 from .utils import get_random_cameras, resolve_device
+from .utils.nan_guard import assert_finite, enable_nan_debug
 from .weights import init_random_
 
 # the optimizer and EMA of prometheus_tpu/configs/experiment/
 # mvldm_vpred_exp.yaml (which train.py reads for every stage)
 OPTIM = dict(learning_rate=1e-5, weight_decay=1e-4, betas=(0.9, 0.95),
              grad_clip=1.0, ema_decay=0.9999, accumulate_grad_batches=1,
-             steps_per_epoch=1000)
+             steps_per_epoch=1000, precision="bf16-mixed",
+             resume_from_checkpoint="latest", output_dir="./workdir",
+             num_workers=4)
 # prometheus_tpu/configs/algorithm/gsdecoder_dit.yaml (network) and
 # experiment/gsdecoder_exp.yaml (training); renders use the renderer's tile
 # capacity, 1024
@@ -93,7 +131,8 @@ MVLDM_TRAIN = dict(
     gsdecoder=GSDECODER_TRAIN["model"], image_size=256, batch_size=8,
     num_views=8, num_pred_views=8, images_per_iter=2,
     scheduler_type="vprediction", timestep_type="continuous",
-    drop_pose_p=0.1, drop_text_p=0.1, drop_text_p_sv=0.1, lambda_sv=1.0,
+    high_noise=False, drop_pose_p=0.1, drop_text_p=0.1, drop_text_p_sv=0.1,
+    lambda_sv=1.0,
     lambda_render=0.1, lambda_render_depth=0.5, lambda_render_lpips=1.0,
     rendering_size=256, adam_mu_dtype=torch.bfloat16)
 SMALL_MVLDM_TRAIN = dict(
@@ -173,7 +212,8 @@ def dummy_sv_camera(image_size: int) -> torch.Tensor:
 class Trainer:
     """A built run: the system, its train state and step, the loss the
     step differentiates, and the generator its batches and draws come
-    from. ``make_batch(trainer)`` draws one synthetic batch."""
+    from. ``make_batch(trainer)`` gives one batch on the device: a
+    synthetic one, or the next from disk through ``feed``."""
 
     system: object
     state: TrainState
@@ -184,6 +224,8 @@ class Trainer:
     make_batch: Callable
     train_step: Callable = None
     gs_system: GSDecoderSystem | None = None     # mvldm --render_loss
+    stage: str = ""
+    feed: DiskFeed | None = None
 
     @property
     def device(self) -> torch.device:
@@ -206,14 +248,15 @@ def _random_module(cls, kwargs: dict, device: torch.device,
     return module
 
 
-def _finish(system, model, loss_fn, cfg, batch_size, g, make_batch,
+def _finish(stage, system, model, loss_fn, cfg, batch_size, g, make_batch,
             frozen=None) -> Trainer:
     """Freeze, build the optimizer, the train state and the step."""
     trained = freeze_(model, frozen)
     opt = make_optimizer(trained, cfg["learning_rate"], cfg["weight_decay"],
                          cfg["betas"], mu_dtype=cfg["adam_mu_dtype"])
     trainer = Trainer(system, init_train_state(model, opt), loss_fn, cfg,
-                      batch_size or cfg["batch_size"], g, make_batch)
+                      batch_size or cfg["batch_size"], g, make_batch,
+                      stage=stage)
     trainer.train_step = make_train_step(
         lambda batch: trainer.loss_fn(batch), opt,
         ema_decay=cfg["ema_decay"],
@@ -222,22 +265,25 @@ def _finish(system, model, loss_fn, cfg, batch_size, g, make_batch,
     return trainer
 
 
-def _compute_dtype(device: torch.device) -> torch.dtype:
-    return torch.bfloat16 if device.type == "cuda" else torch.float32
+def _compute_dtype(device: torch.device, cfg: dict) -> torch.dtype:
+    """bf16 on a card at ``bf16-mixed`` precision, fp32 otherwise."""
+    return (torch.bfloat16 if device.type == "cuda"
+            and "bf16" in cfg["precision"] else torch.float32)
 
 
 def build_gsdecoder_trainer(small: bool = False,
                             device: str | torch.device = "cuda",
-                            seed: int = 0, batch_size: int | None = None
-                            ) -> Trainer:
+                            seed: int = 0, batch_size: int | None = None,
+                            overrides: dict | None = None) -> Trainer:
     """The stage-1 run at flagship (or ``small``) widths with seeded random
-    weights on ``device``; bf16-mixed on a card, fp32 on the CPU."""
+    weights on ``device``; bf16-mixed on a card, fp32 on the CPU.
+    ``overrides`` replace keys of the stage's settings dict."""
     device = resolve_device(device)
-    cfg = CONFIGS[("gsdecoder", small)]
+    cfg = dict(CONFIGS[("gsdecoder", small)], **(overrides or {}))
     g = torch.Generator(device=device).manual_seed(seed)
     model = _random_module(GSDecoderModel, cfg["model"], device, g).train()
     system = GSDecoderSystem(model, render_size=cfg["render_size"],
-                             compute_dtype=_compute_dtype(device))
+                             compute_dtype=_compute_dtype(device, cfg))
     n_in = cfg["num_input_views"]
     latent = cfg["image_size"] // 2 ** (len(cfg["model"]["vae_ch_mult"]) - 1)
 
@@ -250,26 +296,31 @@ def build_gsdecoder_trainer(small: bool = False,
                                   n_in + cfg["num_novel_views"],
                                   cfg["image_size"], n_in, latent, tr.device)
 
-    return _finish(system, model, loss_fn, cfg, batch_size, g, make_batch)
+    return _finish("gsdecoder", system, model, loss_fn, cfg, batch_size, g,
+                   make_batch)
 
 
 def build_mvldm_trainer(small: bool = False,
                         device: str | torch.device = "cuda", seed: int = 0,
                         batch_size: int | None = None, joint_sv: bool = False,
                         render_loss: bool = False,
-                        gsdecoder_ckpt: str | None = None) -> Trainer:
+                        gsdecoder_ckpt: str | None = None,
+                        overrides: dict | None = None) -> Trainer:
     """The stage-2 run at flagship (or ``small``) widths with seeded random
     weights on ``device``: the multi-view loss, plus the single-view loss
-    with ``joint_sv`` and the rendering loss through a frozen GS decoder
-    with ``render_loss``. The VAE and the text tower are frozen; bf16-mixed
-    on a card, fp32 on the CPU."""
+    on a batch with ``images_sv`` (``joint_sv`` puts them in the synthetic
+    batches) and the rendering loss through a frozen GS decoder with
+    ``render_loss``. The VAE and the text tower are frozen; bf16-mixed on a
+    card, fp32 on the CPU. ``overrides`` replace keys of the stage's
+    settings dict."""
     device = resolve_device(device)
-    cfg = CONFIGS[("mvldm", small)]
+    cfg = dict(CONFIGS[("mvldm", small)], **(overrides or {}))
     g = torch.Generator(device=device).manual_seed(seed)
-    cdt = _compute_dtype(device)
+    cdt = _compute_dtype(device, cfg)
     model = _random_module(MVLDMModel, cfg["model"], device, g).train()
     system = MVLDMSystem(model=model,
-                         schedule=make_schedule(cfg["scheduler_type"]),
+                         schedule=make_schedule(cfg["scheduler_type"],
+                                                high_noise=cfg["high_noise"]),
                          timestep_type=cfg["timestep_type"],
                          num_pred_views=cfg["num_pred_views"],
                          compute_dtype=cdt)
@@ -317,7 +368,8 @@ def build_mvldm_trainer(small: bool = False,
             cfg["model"]["context_dim"],
             sv=cfg["images_per_iter"] if joint_sv else 0, device=tr.device)
 
-    trainer = _finish(system, model, loss_fn, cfg, batch_size, g, make_batch,
+    trainer = _finish("mvldm", system, model, loss_fn, cfg, batch_size, g,
+                      make_batch,
                       frozen=frozen_components("vae", "text_encoder"))
     trainer.gs_system = gs_system
     return trainer
@@ -334,7 +386,7 @@ def build_trajdit_trainer(small: bool = False,
     g = torch.Generator(device=device).manual_seed(seed)
     model = _random_module(TrajDiTModel, cfg["model"], device, g).train()
     system = TrajDiTSystem(model=model)
-    cdt = _compute_dtype(device)
+    cdt = _compute_dtype(device, cfg)
 
     def loss_fn(batch):
         loss = system.loss(batch["cameras_mv"], batch["text_emb"],
@@ -349,7 +401,307 @@ def build_trajdit_trainer(small: bool = False,
                     tr.batch_size, 77, model.y_embedder.in_features,
                     generator=tr.generator, device=tr.device) * 0.02}
 
-    return _finish(system, model, loss_fn, cfg, batch_size, g, make_batch)
+    return _finish("trajdit", system, model, loss_fn, cfg, batch_size, g,
+                   make_batch)
+
+
+class DiskFeed:
+    """Batches from disk: the loader's next host batch (a new epoch when
+    one ends), converted to the loss's batch on the device by ``convert``.
+    ``wait_s`` holds the host seconds the last batch waited on the loader.
+    ``close()`` ends the loader's worker processes."""
+
+    def __init__(self, loader, convert: Callable):
+        if len(loader) == 0:
+            raise ValueError(
+                f"the dataset's {len(loader.dataset)} items make no batch "
+                f"of {loader.batch_sampler.batch_size}")
+        self.loader, self.convert = loader, convert
+        self.wait_s = 0.0
+        self._it = None
+
+    def next_raw(self) -> dict:
+        t0 = time.perf_counter()
+        while True:
+            if self._it is None:
+                self._it = iter(self.loader)
+            try:
+                raw = next(self._it)
+                break
+            except StopIteration:
+                self._it = None
+        self.wait_s = time.perf_counter() - t0
+        return raw
+
+    def __call__(self, trainer: Trainer) -> dict:
+        return self.convert(self.next_raw())
+
+    def close(self) -> None:
+        """End the workers now (the iterator would end them when
+        collected)."""
+        if self._it is not None and hasattr(self._it, "_shutdown_workers"):
+            self._it._shutdown_workers()
+        self._it = None
+
+
+def luminance_depth(images: torch.Tensor) -> torch.Tensor:
+    """The luminance pseudo-disparity of images in [-1, 1]: ``clip(mean_c *
+    0.5 + 0.5, 0, 1)``, ``(..., 3, H, W)`` -> ``(..., 1, H, W)``."""
+    return torch.clamp(images.mean(dim=-3, keepdim=True) * 0.5 + 0.5,
+                       0.0, 1.0)
+
+
+# the composed config's keys that train.py reads, each with the stage
+# setting it sets and how its value converts: training.<key> (all stages,
+# then stage 2's losses), experiment.<key> (stage 2's schedule) and the
+# networks' keys (without --small)
+_TRAINING_KEYS = {
+    "learning_rate": ("learning_rate", float),
+    "weight_decay": ("weight_decay", float),
+    "betas": ("betas", lambda v: tuple(float(b) for b in v)),
+    "ema_decay": ("ema_decay", float),
+    "accumulate_grad_batches": ("accumulate_grad_batches", int),
+    "steps_per_epoch": ("steps_per_epoch", int),
+    "num_workers": ("num_workers", int),
+    "precision": ("precision", str),
+    "resume_from_checkpoint": ("resume_from_checkpoint", str),
+    "adam_mu_dtype": ("adam_mu_dtype",
+                      lambda v: torch.bfloat16 if str(v) == "bf16" else None),
+}
+_MVLDM_LOSS_KEYS = {
+    "drop_pose_p": ("drop_pose_p", float),
+    "text_to_3d_drop_text_p": ("drop_text_p", float),
+    "text_to_2d_drop_text_p": ("drop_text_p_sv", float),
+    "lambda_sv": ("lambda_sv", float),
+    "lambda_render": ("lambda_render", float),
+    "lambda_render_depth": ("lambda_render_depth", float),
+    "lambda_gs_image_lpips": ("lambda_render_lpips", float),
+}
+_SCHEDULE_KEYS = {"scheduler_type": ("scheduler_type", str),
+                  "timestep_type": ("timestep_type", str),
+                  "high_noise_level": ("high_noise", bool)}
+_MVLDM_NETWORK_KEYS = {k: (k, int) for k in (
+    "image_size", "latent_channel", "extra_latent_channel", "model_channels",
+    "num_res_blocks", "num_head_channels", "context_dim", "clip_layers",
+    "clip_width")} | {"channel_mult": ("channel_mult", tuple),
+                      "disable_3d_attentions": ("disable_3d_attentions",
+                                                tuple),
+                      "use_checkpoint": ("use_checkpoint", bool)}
+_GS_NETWORK_KEYS = {"latent_channel": ("latent_channel", int),
+                    "extra_latent_channel": ("extra_latent_channel", int)}
+_DIT_KEYS = {"hidden_size": ("dit_hidden_size", int),
+             "depth": ("dit_depth", int),
+             "num_heads": ("dit_num_heads", int),
+             "max_num_images": ("max_num_images", int)}
+
+
+def _taken(src, keys: dict) -> dict:
+    return {name: conv(src[k]) for k, (name, conv) in keys.items()
+            if k in (src or {})}
+
+
+def config_settings(cfg, stage: str, small: bool) -> dict:
+    """The stage's settings that the composed config sets: every key that
+    ``train.py`` reads (``training``'s optimizer, EMA, precision, resume,
+    workers and, for stage 2, loss keys; the batch, which holds
+    ``accumulate_grad_batches`` micro-batches; the views of stage 1, which
+    ``--small`` keeps at 2 + 2, and of stage 2 with its single-view images;
+    ``output_dir``; the experiment's schedule; and without ``--small`` the
+    networks of ``algorithm`` (stage 2, and the image size of both stages)
+    and ``gsdecoder`` (stage 1, and stage 2's rendering decoder)). Raises
+    on a value the port cannot honour."""
+    base = CONFIGS[(stage, small)]
+    tr = cfg.get("training", {})
+    out = _taken(tr, _TRAINING_KEYS)
+    if "output_dir" in cfg:
+        out["output_dir"] = str(cfg["output_dir"])
+    accum = out.get("accumulate_grad_batches", base["accumulate_grad_batches"])
+    out["batch_size"] = int(tr.get("batch_size", base["batch_size"])) * accum
+    if stage == "gsdecoder" and not small:
+        for k in ("num_input_views", "num_novel_views"):
+            if k in tr:
+                out[k] = int(tr[k])
+    if stage == "mvldm":
+        if cfg.get("lpips_weights"):
+            raise NotImplementedError(
+                "lpips_weights: the port's LPIPS has random weights only")
+        out.update(_taken(tr, _MVLDM_LOSS_KEYS))
+        out.update(_taken(cfg.get("experiment"), _SCHEDULE_KEYS))
+        if "num_input_views" in tr:
+            out["num_views"] = int(tr["num_input_views"]) + int(
+                tr.get("num_novel_views", 0))
+        if "single_view_num" in tr:
+            out["images_per_iter"] = int(tr["single_view_num"])
+        if "num_pred_views" in tr and not small:
+            out["num_pred_views"] = int(tr["num_pred_views"])
+    if small:
+        return out
+    net = _taken((cfg.get("algorithm") or {}).get("network"),
+                 _MVLDM_NETWORK_KEYS)
+    if "image_size" in net:
+        out["image_size"] = net["image_size"]
+    if stage == "mvldm" and net:
+        out["model"] = dict(base["model"], **net)
+    gnet = (cfg.get("gsdecoder") or {}).get("network")
+    if gnet:
+        for k in ("use_ema_norm", "use_cross_view_dit"):
+            if not gnet.get(k, True):
+                raise NotImplementedError(
+                    f"gsdecoder.network.{k}: false is not ported (the "
+                    "port's GS decoder has the EMA norm and the cross-view "
+                    "DiT)")
+        gs = dict(_taken(gnet, _GS_NETWORK_KEYS),
+                  **_taken(gnet.get("cross_view_dit"), _DIT_KEYS))
+        key = "model" if stage == "gsdecoder" else "gsdecoder"
+        out[key] = dict(base[key], **gs)
+    return out
+
+
+def attach_disk_feed(trainer: Trainer, cfg, seed: int) -> DiskFeed:
+    """Build the config's training dataset and its loader, and make the
+    trainer's batches come from it: images and cameras to the device
+    (pinned, ``non_blocking``), luminance depths, and for stage 2 the frozen
+    CLIP tower's embeddings of the captions (``text_emb``), of the empty
+    prompt (``uncond_text_emb``) and of each single-view caption
+    (``text_emb_sv``, ``(B, M, 77, D)``); stage 1 draws the encoder's
+    sampling noise from the trainer's generator."""
+    from .datasets import build_dataset, common_kwargs_from_group, make_loader
+    from .models.clip_text import CLIPTokenizer
+
+    tc, dev, system = trainer.cfg, trainer.device, trainer.system
+    ds_cfg = dict(cfg["dataset"])
+    dataset = build_dataset(dict(ds_cfg["train"]),
+                            common_kwargs_from_group(ds_cfg))
+    loader = make_loader(dataset, trainer.batch_size,
+                         num_workers=tc["num_workers"], seed=seed,
+                         pin_memory=dev.type == "cuda")
+    img = tc["image_size"]
+
+    def to_dev(x):
+        return x.to(dev, non_blocking=True)
+
+    def images_of(raw, key):
+        images = to_dev(raw[key])
+        if images.shape[-1] != img or images.shape[-2] != img:
+            # attention sequences grow 4x an octave: fail with the fix
+            raise ValueError(
+                f"dataset serves {images.shape[-2]}x{images.shape[-1]} "
+                f"images but the model expects {img}x{img}: set the "
+                "config's image_size (--override image_size=...) to match")
+        return images
+
+    if trainer.stage == "mvldm":
+        tokenizer = CLIPTokenizer(cfg.get("bpe_vocab"))
+        model = system.model
+        uncond = {}
+
+        def embed(texts) -> torch.Tensor:
+            ids = torch.from_numpy(tokenizer(list(texts))).long().to(dev)
+            with torch.no_grad(), system._autocast(dev):
+                return model.encode_text(ids).float()
+
+        def convert(raw):
+            images = images_of(raw, "images_mv")
+            B = images.shape[0]
+            if "emb" not in uncond:
+                uncond["emb"] = embed([""])
+            out = {"images_mv": images,
+                   "cameras_mv": to_dev(raw["cameras_mv"]),
+                   "depths_mv": luminance_depth(images),
+                   "text_emb": embed(raw["text_mv"]),
+                   "uncond_text_emb": uncond["emb"].expand(
+                       (B,) + uncond["emb"].shape[1:])}
+            if "images_sv" in raw:
+                images_sv = images_of(raw, "images_sv")
+                M = images_sv.shape[1]
+                emb = embed([t for per_item in raw["text_sv"]
+                             for t in per_item])
+                out.update(images_sv=images_sv,
+                           depths_sv=luminance_depth(images_sv),
+                           text_emb_sv=emb.reshape((B, M) + emb.shape[1:]))
+            return out
+    else:
+        n_in = tc["num_input_views"]
+        latent = img // 2 ** (len(tc["model"]["vae_ch_mult"]) - 1)
+
+        def convert(raw):
+            images = images_of(raw, "images_mv")
+            return {"images_mv": images,
+                    "cameras_mv": to_dev(raw["cameras_mv"]),
+                    "depths_mv": luminance_depth(images),
+                    "encode_noise": torch.randn(
+                        images.shape[0], n_in, 4, latent, latent,
+                        generator=trainer.generator, device=dev)}
+
+    feed = DiskFeed(loader, convert)
+    trainer.make_batch, trainer.feed = feed, feed
+    return feed
+
+
+@contextlib.contextmanager
+def ema_weights(trainer: Trainer):
+    """The model with its EMA weights in place of the trained ones, in eval
+    mode; the live weights and mode come back on exit."""
+    model = trainer.state.model
+    named = dict(model.named_parameters())
+    live = {n: named[n].data for n in trainer.state.ema_params}
+    was_training = model.training
+    try:
+        for n, ema in trainer.state.ema_params.items():
+            named[n].data = ema
+        model.eval()
+        yield model
+    finally:
+        for n, data in live.items():
+            named[n].data = data
+        model.train(was_training)
+
+
+@torch.no_grad()
+def validation_snapshot(trainer: Trainer, step: int, batch: dict,
+                        logger) -> None:
+    """The snapshot of ``train.py``'s ``--val_every``, with the EMA weights
+    and a generator seeded by ``step``: mvldm samples the batch's first
+    scene in 20 steps (``val_mv_images`` grid, ``val_mv_views`` GIF);
+    gsdecoder renders its novel views from its input views
+    (``val_nvs_renders``: ground truth, prediction and depth rows); trajdit
+    samples a trajectory in 20 steps (``snapshots/<step>_val_traj.png``)."""
+    from .utils.image import colorize_depth, make_grid, postprocess_image
+
+    system, dev = trainer.system, trainer.device
+    g = torch.Generator(device=dev).manual_seed(step)
+    with ema_weights(trainer) as model:
+        if trainer.stage == "mvldm":
+            with system._autocast(dev):
+                lat = system.sample(
+                    batch["cameras_mv"][:1], batch["text_emb"][:1],
+                    batch["uncond_text_emb"][:1], generator=g,
+                    num_inference_steps=20, latent_hw=model.latent_size)
+                imgs, _ = system.decode_images_and_depths(lat)
+            views = postprocess_image(imgs[0].float().cpu().numpy())
+            logger.log_image("val_mv_images", make_grid(views), step)
+            logger.log_gif("val_mv_views", list(views), step,
+                           duration_ms=200)
+        elif trainer.stage == "gsdecoder":
+            n_in = trainer.cfg["num_input_views"]
+            out = system.inference(
+                batch["images_mv"][:1, :n_in], batch["depths_mv"][:1, :n_in],
+                batch["cameras_mv"][:1, :n_in], batch["cameras_mv"][:1, n_in:])
+            rows = [postprocess_image(batch["images_mv"][0, n_in:]
+                                      .float().cpu().numpy()),
+                    postprocess_image(out["images_nv_pred"][0]
+                                      .float().cpu().numpy()),
+                    colorize_depth(out["depths_nv_pred"][0, :, 0]
+                                   .float().cpu().numpy())]
+            logger.log_grid("val_nvs_renders", [list(r) for r in rows], step)
+        else:
+            from .utils.visualization import plot_cameras_png
+
+            cams = system.inference(batch["text_emb"][:1], generator=g,
+                                    num_inference_steps=20, image_size=256)
+            plot_cameras_png(os.path.join(logger.log_dir, "snapshots",
+                                          f"{step:09d}_val_traj.png"),
+                             cams[0].float().cpu().numpy())
 
 
 def parse_args(argv=None):
@@ -358,21 +710,32 @@ def parse_args(argv=None):
     p.add_argument("--stage", default="mvldm",
                    choices=["mvldm", "gsdecoder", "trajdit"])
     p.add_argument("--synthetic", action="store_true",
-                   help="synthetic random batches (the only data source "
-                        "ported)")
+                   help="synthetic random batches (without it: the "
+                        "config's dataset on disk)")
+    p.add_argument("--config", default=DEFAULT_CONFIG,
+                   help="root config of the data on disk")
+    p.add_argument("--override", nargs="*", default=[],
+                   help="group=stem or key=value, e.g. data_root=DIR "
+                        "training.batch_size=4 dataset=gsdecoder_dataset")
     p.add_argument("--small", action="store_true",
                    help="reduced model widths (smoke)")
     p.add_argument("--max_steps", type=int, default=-1)
     p.add_argument("--batch_size", type=int, default=None)
-    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--seed", type=int, default=None,
+                   help="default: the config's seed from disk, else 0")
     p.add_argument("--log_every", type=int, default=10)
     p.add_argument("--save_every", type=int, default=1000)
+    p.add_argument("--val_every", type=int, default=0,
+                   help="every N steps: a snapshot with the EMA weights "
+                        "under <ckpt_dir>/snapshots/")
     p.add_argument("--ckpt_dir", default=None,
                    help="checkpoints and metrics.jsonl (default "
                         "./workdir/<stage>_ckpts); resumes from the newest")
     p.add_argument("--device", default="cuda")
     p.add_argument("--joint_sv", action="store_true",
-                   help="mvldm: add the single-view (T2I) loss")
+                   help="mvldm: add the single-view (T2I) loss to synthetic "
+                        "batches (from disk it runs whenever the dataset "
+                        "serves images_sv)")
     p.add_argument("--render_loss", action="store_true",
                    help="mvldm: add the rendering loss through the frozen "
                         "stage-1 decoder")
@@ -380,31 +743,47 @@ def parse_args(argv=None):
                    help="a stage-1 checkpoint of this package (a step_* "
                         "directory, or a directory of them) for "
                         "--render_loss; random decoder if absent")
+    p.add_argument("--depth_teacher", default=None,
+                   choices=["da2", "luminance"],
+                   help="pseudo-depth of data on disk: luminance is the one "
+                        "that runs (da2, the JAX trainer's default, is not "
+                        "ported yet)")
+    p.add_argument("--debug", action="store_true",
+                   help="anomaly detection in the backward and a NaN / Inf "
+                        "check of every batch")
     # the JAX trainer's other options, refused
-    p.add_argument("--val_every", type=int, default=0)
     p.add_argument("--sp_views", action="store_true")
     p.add_argument("--param_sharding", default="replicated",
                    choices=["replicated", "fsdp"])
-    p.add_argument("--depth_teacher", default=None,
-                   choices=["da2", "luminance"])
-    p.add_argument("--debug", action="store_true")
     return p.parse_args(argv)
 
 
-def main(argv=None) -> Trainer:
-    args = parse_args(argv)
-    if not args.synthetic:
-        raise NotImplementedError(
-            "training data on disk is not ported yet: pass --synthetic")
-    refused = {"--val_every": args.val_every > 0, "--sp_views": args.sp_views,
+def build_trainer(args) -> Trainer:
+    """The trainer ``args`` ask for, its batches synthetic or from disk."""
+    refused = {"--sp_views": args.sp_views,
                "--param_sharding fsdp": args.param_sharding == "fsdp",
-               "--depth_teacher": args.depth_teacher is not None,
-               "--debug": args.debug}
+               "--depth_teacher da2": args.depth_teacher == "da2"}
     for flag, given in refused.items():
         if given:
             raise NotImplementedError(f"{flag} is not ported yet")
-    common = dict(small=args.small, device=args.device, seed=args.seed,
-                  batch_size=args.batch_size)
+    cfg = None
+    if not args.synthetic:
+        if args.stage == "trajdit":
+            raise ValueError(
+                "--stage trajdit trains on --synthetic batches only: from "
+                "disk its loss would need text embeddings, which the JAX "
+                "trainer does not make outside --stage mvldm either")
+        if args.depth_teacher is None:
+            raise NotImplementedError(
+                "training from disk needs --depth_teacher luminance: da2, "
+                "the JAX trainer's default, is not ported yet")
+        cfg = load_config(args.config, args.override)
+    seed = args.seed if args.seed is not None else int(
+        cfg.get("seed", 0) if cfg else 0)
+    common = dict(small=args.small, device=args.device, seed=seed,
+                  batch_size=args.batch_size,
+                  overrides=config_settings(cfg, args.stage, args.small)
+                  if cfg else None)
     if args.stage == "mvldm":
         trainer = build_mvldm_trainer(
             joint_sv=args.joint_sv, render_loss=args.render_loss,
@@ -412,33 +791,67 @@ def main(argv=None) -> Trainer:
     elif args.stage == "gsdecoder":
         trainer = build_gsdecoder_trainer(**common)
     else:
+        common.pop("overrides")
         trainer = build_trajdit_trainer(**common)
+    if cfg:
+        attach_disk_feed(trainer, cfg, seed)
+    return trainer
+
+
+def run(args, trainer: Trainer) -> Trainer:
+    """Train ``trainer`` as ``args`` ask: resume, step, log, snapshot and
+    checkpoint; the loader's workers end with the run."""
+    from .logging_utils import MetricLogger
+
     state = trainer.state
-    ckpt_dir = args.ckpt_dir or os.path.join("workdir",
+    ckpt_dir = args.ckpt_dir or os.path.join(trainer.cfg["output_dir"],
                                              f"{args.stage}_ckpts")
     latest = latest_checkpoint(ckpt_dir)
-    if latest:
+    if latest and trainer.cfg["resume_from_checkpoint"] == "latest":
         restore_checkpoint(latest, state)
         print(f"[train] resumed from {latest}")
     os.makedirs(ckpt_dir, exist_ok=True)
     log_path = os.path.join(ckpt_dir, "metrics.jsonl")
     max_steps = (args.max_steps if args.max_steps > 0
                  else trainer.cfg["steps_per_epoch"])
+    logger = MetricLogger(ckpt_dir) if args.val_every > 0 else None
+    anomaly = torch.is_anomaly_enabled()
+    if args.debug:
+        enable_nan_debug()
     t_start = time.time()
-    for step in range(state.step, max_steps):
-        metrics = trainer.step()
-        if step % args.log_every == 0 or step == max_steps - 1:
-            line = json.dumps({"step": step,
-                               "time": round(time.time() - t_start, 2),
-                               **{k: float(v) for k, v in metrics.items()}})
-            print(line, flush=True)
-            with open(log_path, "a") as fp:
-                fp.write(line + "\n")
-        if args.save_every > 0 and (step + 1) % args.save_every == 0:
-            save_checkpoint(ckpt_dir, state, step + 1)
+    try:
+        for step in range(state.step, max_steps):
+            batch = trainer.batch()
+            if args.debug:
+                assert_finite(batch, f"batch@step{step}")
+            metrics = trainer.step(batch)
+            if step % args.log_every == 0 or step == max_steps - 1:
+                line = json.dumps({"step": step,
+                                   "time": round(time.time() - t_start, 2),
+                                   **{k: float(v)
+                                      for k, v in metrics.items()}})
+                print(line, flush=True)
+                with open(log_path, "a") as fp:
+                    fp.write(line + "\n")
+            if logger is not None and (step + 1) % args.val_every == 0:
+                try:
+                    validation_snapshot(trainer, step + 1, batch, logger)
+                except Exception as e:   # a snapshot never ends the run
+                    print(f"[train] validation snapshot failed: {e!r}")
+            if args.save_every > 0 and (step + 1) % args.save_every == 0:
+                save_checkpoint(ckpt_dir, state, step + 1)
+    finally:
+        if trainer.feed is not None:
+            trainer.feed.close()
+        enable_nan_debug(anomaly)
     save_checkpoint(ckpt_dir, state, max_steps)
     print(f"[train] done: {max_steps} steps, ckpts in {ckpt_dir}")
     return trainer
+
+
+def main(argv=None) -> Trainer:
+    args = parse_args(argv)
+    return run(args, build_trainer(args))
 
 
 if __name__ == "__main__":

@@ -1,5 +1,7 @@
-from .cameras import (camera_c2w, camera_intrinsics, get_random_cameras,
-                      look_at, make_camera, opengl_to_opencv,
+from .cameras import (camera_c2w, camera_fov, camera_intrinsics,
+                      check_valid_rotations, get_random_cameras,
+                      llff_to_opengl, look_at, make_camera, matrix_to_square,
+                      normalize_poses, opencv_to_opengl, opengl_to_opencv,
                       sample_from_dense_cameras, sample_from_two_poses)
 from .device import resolve_device
 from .quaternion import (matrix_to_quaternion, quaternion_multiply,
@@ -8,8 +10,10 @@ from .quaternion import (matrix_to_quaternion, quaternion_multiply,
 from .rays import embed_rays, raymap, sample_rays
 
 __all__ = [
-    "camera_c2w", "camera_intrinsics", "embed_rays", "get_random_cameras",
-    "look_at", "make_camera", "matrix_to_quaternion", "opengl_to_opencv",
+    "camera_c2w", "camera_fov", "camera_intrinsics", "check_valid_rotations",
+    "embed_rays", "get_random_cameras", "llff_to_opengl", "look_at",
+    "make_camera", "matrix_to_quaternion", "matrix_to_square",
+    "normalize_poses", "opencv_to_opengl", "opengl_to_opencv",
     "quaternion_multiply", "quaternion_normalize", "quaternion_slerp",
     "quaternion_to_matrix", "raymap", "resolve_device",
     "sample_from_dense_cameras", "sample_from_two_poses", "sample_rays",

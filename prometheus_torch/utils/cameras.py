@@ -9,6 +9,7 @@ from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 
 from .quaternion import (matrix_to_quaternion, quaternion_normalize,
@@ -46,10 +47,67 @@ def camera_intrinsics(cameras: torch.Tensor, h=None, w=None):
     return fx, fy, cx, cy, H, W
 
 
-def opengl_to_opencv(poses: torch.Tensor) -> torch.Tensor:
+def camera_fov(cameras: torch.Tensor, h=None, w=None):
+    """Per-camera ``(fovx, fovy)`` in radians at render resolution."""
+    fx, fy, cx, cy, H, W = camera_intrinsics(cameras, h=h, w=w)
+    return 2.0 * torch.atan(0.5 * W / fx), 2.0 * torch.atan(0.5 * H / fy)
+
+
+# Convention conversions take torch tensors or numpy arrays and return the
+# same kind: the datasets convert their poses on the host, in numpy.
+
+def opencv_to_opengl(poses):
     """Negate the y and z columns of ``(..., 3, 4)`` poses (an involution)."""
-    flip = poses.new_tensor([1.0, -1.0, -1.0, 1.0])
-    return poses * flip
+    if isinstance(poses, torch.Tensor):
+        return poses * poses.new_tensor([1.0, -1.0, -1.0, 1.0])
+    return poses * np.asarray([1.0, -1.0, -1.0, 1.0])
+
+
+opengl_to_opencv = opencv_to_opengl
+
+
+def llff_to_opengl(poses):
+    """LLFF ``[down, right, backward]`` columns -> OpenGL."""
+    cat = torch.cat if isinstance(poses, torch.Tensor) else np.concatenate
+    return cat([poses[..., 1:2], -poses[..., 0:1], poses[..., 2:3],
+                poses[..., 3:4]], -1)
+
+
+def matrix_to_square(m):
+    """Promote ``(..., 3, 4)`` to homogeneous ``(..., 4, 4)``."""
+    batch = m.shape[:-2]
+    if isinstance(m, torch.Tensor):
+        bottom = m.new_tensor([0.0, 0.0, 0.0, 1.0]).expand(batch + (1, 4))
+        return torch.cat([m, bottom], dim=-2)
+    bottom = np.broadcast_to(np.asarray([0.0, 0.0, 0.0, 1.0], m.dtype),
+                             batch + (1, 4))
+    return np.concatenate([m, bottom], axis=-2)
+
+
+def normalize_poses(c2ws: torch.Tensor, num_input_views: int = -1,
+                    eps: float = 1e-2):
+    """First-frame-relative poses with max-translation scaling.
+
+    ``c2ws (N, 3, 4)`` OpenGL poses are premultiplied by the inverse of the
+    first; translations are divided by ``max_n |t_n| + eps`` over the first
+    ``num_input_views`` views (all if -1). Returns ``(normalized (N, 3, 4),
+    t_norm)``; callers hold ``t_norm`` against a scene-scale threshold."""
+    sq = matrix_to_square(c2ws)
+    rel = (torch.linalg.inv(sq[:1]) @ sq)[:, :3, :]
+    nv = num_input_views if num_input_views > 0 else c2ws.shape[0]
+    t_norm = torch.linalg.norm(rel[:nv, :3, 3], dim=-1).max()
+    t = rel[:, :3, 3] / (t_norm + eps)
+    return torch.cat([rel[:, :3, :3], t[..., None]], dim=-1), t_norm
+
+
+def check_valid_rotations(rots: torch.Tensor, tol: float = 1e-5
+                          ) -> torch.Tensor:
+    """True iff every ``(..., 3, 3)`` block is a proper rotation
+    (orthonormal, determinant 1)."""
+    eye = torch.eye(3, dtype=rots.dtype, device=rots.device)
+    orth = (rots @ rots.transpose(-1, -2) - eye).abs().max()
+    det = (torch.linalg.det(rots) - 1.0).abs().max()
+    return (orth < tol * 100) & (det < tol * 100)
 
 
 def look_at(eye: torch.Tensor, target: torch.Tensor,

@@ -2,9 +2,11 @@
 
 ``save_image`` writes PNG with the standard library alone (``zlib`` and
 ``struct``), so the exports need no imaging package; the pixels decode
-bit-equal to the JAX writer's. ``load_image`` reads through PIL and
-``save_video`` writes mp4 through imageio or, failing that, a GIF through
-PIL; both import their package when called.
+bit-equal to the JAX writer's. ``load_image`` reads through PIL,
+``save_gif`` writes an animated GIF through PIL, ``ImageGrid`` composes
+snapshot grids (resizing through PIL), and ``save_video`` writes mp4 through
+imageio or, failing that, a GIF through PIL; each imports its package when
+called.
 """
 from __future__ import annotations
 
@@ -114,3 +116,68 @@ def save_video(frames: np.ndarray, path: str, fps: int = 30) -> str:
     imgs[0].save(gif, save_all=True, append_images=imgs[1:],
                  duration=int(1000 / fps), loop=0)
     return gif
+
+
+def save_gif(frames, path: str, duration_ms: int = 100, loop: int = 0,
+             size: tuple[int, int] | None = None) -> str:
+    """Frames (uint8 ``(H, W, 3)``) -> an animated GIF, each frame resized
+    (LANCZOS) to ``size = (height, width)`` when given. Returns ``path``."""
+    from PIL import Image
+
+    imgs = []
+    for f in frames:
+        im = Image.fromarray(np.asarray(f, np.uint8))
+        if size is not None and im.size != (size[1], size[0]):
+            im = im.resize((size[1], size[0]), Image.LANCZOS)
+        imgs.append(im)
+    imgs[0].save(path, format="GIF", save_all=True, append_images=imgs[1:],
+                 duration=duration_ms, loop=loop)
+    return path
+
+
+class ImageGrid:
+    """A cell-addressable grid of images with spacing and a background
+    value. Cells take the size of the first image added; later images are
+    resized (LANCZOS) to it.
+
+        grid = ImageGrid(num_rows, num_cols, spacing=2)
+        grid.add(i, j, image)       # uint8 (H, W, 3)
+        grid.save("snap.png")       # or: arr = grid.compose()
+    """
+
+    def __init__(self, num_rows: int, num_cols: int, spacing: int = 0,
+                 background: int = 255,
+                 cell_size: tuple[int, int] | None = None):
+        assert num_rows > 0 and num_cols > 0
+        self.num_rows, self.num_cols = num_rows, num_cols
+        self.spacing, self.background = spacing, background
+        self.cell_size = cell_size
+        self._cells: dict[tuple[int, int], np.ndarray] = {}
+
+    def add(self, row: int, col: int, image) -> None:
+        assert 0 <= row < self.num_rows and 0 <= col < self.num_cols
+        arr = np.asarray(image, np.uint8)
+        assert arr.ndim == 3 and arr.shape[-1] == 3, arr.shape
+        if self.cell_size is None:
+            self.cell_size = arr.shape[:2]
+        if tuple(arr.shape[:2]) != tuple(self.cell_size):
+            from PIL import Image
+
+            arr = np.asarray(Image.fromarray(arr).resize(
+                (self.cell_size[1], self.cell_size[0]), Image.LANCZOS))
+        self._cells[(row, col)] = arr
+
+    def compose(self) -> np.ndarray:
+        assert self.cell_size is not None, "empty grid"
+        h, w = self.cell_size
+        s = self.spacing
+        out = np.full((self.num_rows * (h + s) - s,
+                       self.num_cols * (w + s) - s, 3), self.background,
+                      np.uint8)
+        for (r, c), img in self._cells.items():
+            out[r * (h + s):r * (h + s) + h, c * (w + s):c * (w + s) + w] = img
+        return out
+
+    def save(self, path: str) -> str:
+        save_image(self.compose(), path)
+        return path
