@@ -61,7 +61,22 @@ Phases (any failure ends the script with a non-zero exit):
    timed with its bound counted from the pairs it walks and keeps, and
    print ``psnr_vs_exact`` of the production render at capacity 1024 and
    512 on that scene;
-10. build the flagship stage-1 trainer (``prometheus_torch.train``: GS
+10. on the same pipeline, after the sampler's other modes, the refiners
+   and the CLI with ``--refine``: image to 3D through the CLI's
+   ``--ref_image`` (a reference PNG written from the seed; the full CLIP
+   ViT-H/14 image tower in bf16 and DA2-Small in float32, random from the
+   seed; 8 random views, image 256, 4 Euler steps, render 512, no video):
+   its stage times (image tower, depth, reference encoding, sample, 2-D
+   decode, gaussians, render), peak memory, launches (A and B must be >
+   0), the csort pairs its render dropped, finite outputs of their shapes,
+   and the pinned view's RGB latents against ``encode_image(ref)``
+   (scaled error <= 1e-2), and the stage times of the same scene once
+   more, warm; then the eval CLI (``prometheus_torch.eval``'s
+   ``run``) over the first 2 prompts of ``benchmarks/scene_benchmark80``
+   with their trajectories' 8 sparse views, 4 steps, render 512: seconds
+   per prompt, finite BRISQUE and NIQE proxies in ``metrics.json``, A and
+   B launched, and a rerun that skips both prompts and launches nothing;
+11. build the flagship stage-1 trainer (``prometheus_torch.train``: GS
    decoder at full width, bf16-mixed, AdamW, EMA; random weights from a
    seed) and run 3 train steps on synthetic batches of 4 scenes x (4 input
    + 4 novel views) at 256x256 (the batch drops to 2, then 1, only if 4
@@ -73,15 +88,15 @@ Phases (any failure ends the script with a non-zero exit):
    warm step (set to 0 just before it, read just after; A, A-bwd, B and C
    must each be > 0), and checks that loss and gradients are finite and
    that the parameters and the EMANorm magnitudes moved;
-11. profile one more warm train step: device time by kernel class, the
+12. profile one more warm train step: device time by kernel class, the
    idle share, the port's kernels by launched kernel, and kernel C's time
    in that step both ways: by the profiler and by CUDA events around its
    launch;
-12. hold kernels B and C against their plain versions once more on the
+13. hold kernels B and C against their plain versions once more on the
    worklists (and, for C, the upstream gradients) of the last counted
    train step, each timed with its bound counted from the pairs they walk
    and keep;
-13. build the flagship stage-2 trainer (``prometheus_torch.train``:
+14. build the flagship stage-2 trainer (``prometheus_torch.train``:
     SD-2.1 U-Net with checkpointed blocks, frozen VAE and CLIP ViT-H text
     tower, bf16-mixed, AdamW with a bf16 first moment, EMA of the trained
     parameters; random weights from a seed) and run 3 ``--joint_sv`` steps
@@ -94,16 +109,16 @@ Phases (any failure ends the script with a non-zero exit):
     nonzero moved, that every VAE and text-tower parameter is bit-unchanged,
     that the first moments are bf16 and that the EMA covers exactly the
     trained parameters; profiles one more warm step;
-14. 2 stage-2 steps with ``--joint_sv --render_loss`` (random GS decoder and
+15. 2 stage-2 steps with ``--joint_sv --render_loss`` (random GS decoder and
     LPIPS) at the largest batch that fits, with the same checks and B and C
     launched; the csort pairs dropped by its render; B and C held on that
     step's own worklists and upstream gradients; A and A-bwd held and timed
     at every attention shape the stage-2 steps recorded that no earlier
     phase holds;
-15. 3 steps of the TrajDiT stage at flagship width, and a save -> restore
+16. 3 steps of the TrajDiT stage at flagship width, and a save -> restore
     round trip of a ``--small`` stage-2 train state on the card, bit-equal
     for every tensor (the bf16 first moments included);
-16. training from image files on disk through ``prometheus_torch.train``
+17. training from image files on disk through ``prometheus_torch.train``
     (``parse_args``, ``build_trainer``, ``run``): a corpus written under
     ``build/chip_smoke/scene_data/`` (16 DL3DV-layout scenes x 24 textured
     720x960 JPEG frames with an ``annotation.pkl``, 8 MVImgNet-layout
@@ -114,7 +129,7 @@ Phases (any failure ends the script with a non-zero exit):
     frozen CLIP text tower and luminance depths. Flagship stage 2 at batch
     8 x 8 views plus 4 single-view images a scene (the batch drops to 4, 2,
     1 only if 8 does not fit, and says so), 4 steps with a ``--val_every
-    4`` snapshot: cold and warm step seconds beside phase 13's synthetic
+    4`` snapshot: cold and warm step seconds beside phase 14's synthetic
     warm step, the host share of each warm step spent waiting on the
     loader, peak memory, the launches of each step and of the snapshot
     (counters set to 0 just before each and read just after; A and A-bwd
@@ -125,15 +140,20 @@ Phases (any failure ends the script with a non-zero exit):
     x (4 + 4) views, 3 steps, a ``--val_every 3`` snapshot: A, A-bwd, B and
     C in a warm step, B in the snapshot, ``val_nvs_renders`` written, the
     csort pairs dropped); one ``--small --debug`` stage-2 step; one TrajDiT
-    ``--synthetic --val_every 1`` step and its ``val_traj.png``. The
+    ``--synthetic --val_every 1`` step and its ``val_traj.png``; the
+    stage-2 run again for 2 steps (and its snapshot) with ``--depth_teacher
+    da2``, the teacher DA2-Small in float32 on a synthetic HF-named state
+    dict written from the seed (``depth_weights``), its device ms a batch
+    printed beside the luminance teacher's. The
     checkpoints of these runs are recorded, not written (a flagship
     stage-2 state is ~14 GB). A and A-bwd are then held and timed at every
     new shape these runs recorded;
-17. print the ``kernels`` JSON line (each kernel's ``launches`` from the
+18. print the ``kernels`` JSON line (each kernel's ``launches`` from the
     path that runs it: ``generate`` without cameras for A and B, the train
     step for A-bwd and C, and every path's counts under
     ``launches_by_path``, the from-disk runs' warm steps and their
-    snapshots (``val_snapshot``) among them; B's and C's entries also hold their checks on
+    snapshots (``val_snapshot``), image to 3D, eval and the DA2 run among
+    them; B's and C's entries also hold their checks on
     the other worklists, B's its launches per orbit video and the
     ``psnr_vs_exact`` readings) and, last, the ``ok`` line.
 
@@ -243,6 +263,11 @@ TRAIN_STEPS, TRAIN_BATCHES = 3, (4, 2, 1)
 MODE_STEPS = 8
 REFINE_MV_ITERS, REFINE_MV_INTERVAL, REFINE_SDS_ITERS = 30, 10, 10
 CLI_REFINE_ITERS = 10
+# image to 3D: the pinned view's RGB latents against encode_image(ref) of
+# the same bf16 VAE, scaled by max|ref| (the sampler copies them, so any
+# error past bf16's resolution means the view was not pinned); the eval
+# phase's prompts
+IMAGE_PIN_TOL, EVAL_PROMPTS = 1e-2, 2
 # stage-2 train steps with --joint_sv (one cold, two warm) and the batch
 # sizes tried in turn (the configuration's 8, cut only if it does not fit);
 # the --render_loss steps; the flagship TrajDiT stage's steps
@@ -254,6 +279,8 @@ TRAJ_TRAIN_STEPS = 3
 # the loader's rate is timed over
 DISK_SCENES, DISK_FRAMES, DISK_MVIMGNET, DISK_T2I = 16, 24, 8, 64
 DISK_MVLDM_STEPS, DISK_GS_STEPS, DISK_GS_BATCHES = 4, 3, (4, 2, 1)
+# the stage-2 run from disk with the DA2 teacher (a snapshot at the last)
+DISK_DA2_STEPS = 2
 LOADER_BATCHES = 7
 
 
@@ -1337,6 +1364,159 @@ def phase_cli_refine(pipe, card: str, shapes: dict) -> dict:
     return dict(wall_s=wall, stages_s=rec["timings"], launches=launches)
 
 
+def write_reference_png(path: Path, seed: int) -> None:
+    """A 384x512 reference photo stand-in (smooth colour waves and noise,
+    from ``seed``) for the image-to-3D phase."""
+    import numpy as np
+    from PIL import Image
+
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[0:384, 0:512].astype(np.float32)
+    img = np.stack([127 + 80 * np.sin(yy * f0 + p) * np.cos(xx * f1)
+                    for f0, f1, p in rng.uniform(0.01, 0.06, (3, 3))], -1)
+    img += rng.normal(0, 10, img.shape).astype(np.float32)
+    path.parent.mkdir(parents=True, exist_ok=True)
+    Image.fromarray(np.clip(img, 0, 255).astype(np.uint8)).save(path)
+
+
+def phase_image_to_3d(pipe, card: str, shapes: dict, binning: dict) -> dict:
+    """The CLI's ``--ref_image`` on the flagship pipeline (the full CLIP
+    ViT-H/14 image tower and DA2-Small attached, random from the seed): a
+    reference PNG, 8 random views, ``STEPS`` Euler steps with joint CFG,
+    render 512, no video. Checks the outputs, that the pinned view's RGB
+    latents are ``encode_image(ref)`` and that A and B ran; prints the
+    stage times, peak memory and the csort pairs the render dropped."""
+    import torch
+
+    from prometheus_torch import inference
+
+    out_root = LOG_DIR / "image_to_3d"
+    shutil.rmtree(out_root, ignore_errors=True)
+    png = out_root / "ref.png"
+    write_reference_png(png, SEED)
+    args = inference.parse_args([
+        "--ref_image", str(png), "--num_steps", str(STEPS), "--export_dir",
+        str(out_root), "--no_video", "--seed", str(SEED)])
+    shapes["path"] = "image_to_3d"
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    t0 = time.perf_counter()
+    (rec,) = inference.run(args, pipe)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_counts()
+    shapes["path"] = None
+    peak = torch.cuda.max_memory_allocated()
+    result = rec.pop("result")
+    check_generate_outputs(result, launches)
+    stats = binning_stats(binning)
+    ref = inference.load_reference(str(png), pipe.mvldm.model.image_size)
+    with torch.no_grad():
+        enc = pipe.mvldm.model.encode_image(ref.to("cuda"))[0, 0]
+    pinned = result["latents_pred"][0, 0, :4]
+    err = float((pinned - enc).abs().max()) / float(enc.abs().max())
+    if not err <= IMAGE_PIN_TOL:
+        raise RuntimeError(f"image to 3D: the reference view's latents are "
+                           f"{err} (scaled) from encode_image(ref)")
+    missing = [n for n in ("gs_renders.png", "mv_images.png",
+                           "mv_depths.png", "gaussians.ply",
+                           "gaussians.splat", "meta.json")
+               if not (Path(rec["out_dir"]) / n).stat().st_size]
+    if missing:
+        raise RuntimeError(f"image to 3D: empty files {missing}")
+    # warm: the same scene again, its towers built and their kernels chosen
+    g = inference.sample_generator(SEED, 0, pipe.device)
+    cams = result["cameras"]
+    warm = pipe.generate_image_to_3d(ref, cams, generator=g,
+                                     num_inference_steps=STEPS,
+                                     render_size=512)["timings"]
+    n_img = sum(p.numel() for p in pipe.image_encoder.parameters())
+    n_da2 = sum(p.numel() for p in pipe.depth_fn.model.parameters())
+    stages = " ".join(f"{k} {v * 1e3:.1f}ms"
+                      for k, v in rec["timings"].items())
+    log(f"image to 3D (CLI --ref_image, CLIP ViT-H/14 image tower "
+        f"{n_img / 1e9:.3f}B parameters bf16, DA2-Small {n_da2 / 1e6:.1f}M "
+        f"float32, 8 views, image 256, {STEPS} Euler steps, render 512) on "
+        f"{card}: wall {wall:.3f} s (the towers' build included); generate "
+        f"{rec['generate_seconds']:.3f} s; stages: {stages}; warm again "
+        f"{sum(warm.values()):.3f} s: " + " ".join(
+            f"{k} {v * 1e3:.1f}ms" for k, v in warm.items())
+        + f"; peak memory "
+        f"{peak / 2**30:.2f} GiB; pinned view vs encode_image scaled error "
+        f"{err:.2e} (tol {IMAGE_PIN_TOL:g}); csort_pairs_dropped "
+        f"{stats['csort_pairs_dropped']} of {stats['instances_needed']:.0f}"
+        f" pairs needed; launches {launches}")
+    return dict(wall_s=wall, generate_s=rec["generate_seconds"],
+                stages_s=rec["timings"], warm_stages_s=warm,
+                peak_bytes=peak, pin_err=err,
+                csort=stats, launches=launches)
+
+
+def phase_eval(pipe, card: str, shapes: dict) -> dict:
+    """``python -m prometheus_torch.eval --benchmark_dir
+    benchmarks/scene_benchmark80 --max_prompts 2 --num_steps 4`` on the
+    flagship pipeline (its ``run``): both prompts generated with their
+    trajectories' 8 sparse views, finite proxies in ``metrics.json``;
+    then the same command again, which must skip both prompts."""
+    import torch
+
+    from prometheus_torch import eval as port_eval
+
+    out_root = LOG_DIR / "eval"
+    shutil.rmtree(out_root, ignore_errors=True)
+    args = port_eval.parse_args([
+        "--benchmark_dir", str(ROOT / "benchmarks" / "scene_benchmark80"),
+        "--max_prompts", str(EVAL_PROMPTS), "--num_steps", str(STEPS),
+        "--export_dir", str(out_root)])
+    shapes["path"] = "eval"
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    t0 = time.perf_counter()
+    first = port_eval.run(args, pipe)
+    wall = time.perf_counter() - t0
+    launches = read_counts()
+    shapes["path"] = None
+    peak = torch.cuda.max_memory_allocated()
+    summary = json.loads((out_root / "metrics.json").read_text())
+    values = [summary[k] for k in ("brisque_proxy_mean", "niqe_proxy_mean")]
+    values += [e[k] for e in summary["per_prompt"]
+               for k in ("brisque_proxy", "niqe_proxy")]
+    if summary["num_prompts"] != EVAL_PROMPTS or not all(
+            map(math.isfinite, values)):
+        raise RuntimeError(f"eval: metrics.json {summary}")
+    if any(r["skipped"] for r in first["records"]):
+        raise RuntimeError("eval: a fresh sweep skipped a prompt")
+    for name in ("flash_attn_fwd", "composite_fwd"):
+        if launches[name] <= 0:
+            raise RuntimeError(f"{name} was not launched by eval")
+    zero_counts()
+    t0 = time.perf_counter()
+    again = port_eval.run(args, pipe)
+    rerun_wall = time.perf_counter() - t0
+    rerun_launches = read_counts()
+    if not all(r["skipped"] for r in again["records"]) or any(
+            rerun_launches.values()):
+        raise RuntimeError(f"eval rerun: {again['records']}, launches "
+                           f"{rerun_launches}")
+    per_prompt = [r["seconds"] for r in first["records"]]
+    stages = "; ".join(" ".join(f"{k} {v * 1e3:.1f}ms"
+                                for k, v in r["timings"].items())
+                       for r in first["records"])
+    log(f"eval ({EVAL_PROMPTS} prompts of scene_benchmark80, 8 sparse views "
+        f"of each trajectory, {STEPS} Euler steps, render 512, BRISQUE and "
+        f"NIQE proxies) on {card}: wall {wall:.3f} s; seconds per prompt "
+        + ", ".join(f"{x:.3f}" for x in per_prompt)
+        + f" (generate stages: {stages}); brisque_proxy_mean "
+        f"{summary['brisque_proxy_mean']:.4f} niqe_proxy_mean "
+        f"{summary['niqe_proxy_mean']:.4f}; peak memory "
+        f"{peak / 2**30:.2f} GiB; launches {launches}; rerun skipped both "
+        f"prompts in {rerun_wall:.3f} s")
+    return dict(wall_s=wall, seconds_per_prompt=per_prompt,
+                rerun_s=rerun_wall, peak_bytes=peak, launches=launches,
+                metrics={k: v for k, v in summary.items()
+                         if k != "per_prompt"})
+
+
 def phase_new_attention_shapes(shapes: dict, held: tuple = (),
                                seed: int = 6) -> tuple:
     """Kernels A and A-bwd at every shape the recorded paths gave them that
@@ -2097,11 +2277,25 @@ def disk_run(label: str, argv: list, batches: tuple, shapes: dict,
             full = argv + ["--batch_size", str(batch)]
         args = train.parse_args(full + ["--ckpt_dir", str(ckpt)])
         rec = dict(steps=[], timings=[], snapshot=None, saved=[],
-                   image_std=[], csort=[], convert=[], ckpt=ckpt)
+                   image_std=[], csort=[], convert=[], depth=[], ckpt=ckpt)
         t0 = time.perf_counter()
         trainer = train.build_trainer(args)
         rec["build_s"] = time.perf_counter() - t0
         step, feed = trainer.train_step, trainer.make_batch
+        if getattr(feed, "depth_fn", None) is not None:
+            # the pseudo-depth teacher between CUDA events, every call of a
+            # batch (its views, then its single-view images)
+            rec["teacher"] = feed.depth_fn
+
+            def timed_depth(images, teacher=feed.depth_fn):
+                ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+                ev[0].record()
+                out = teacher(images)
+                ev[1].record()
+                rec["depth"][-1].append(ev)
+                return out
+
+            feed.depth_fn = timed_depth
 
         def counted_step(state, b, step=step):
             zero_counts()
@@ -2122,6 +2316,7 @@ def disk_run(label: str, argv: list, batches: tuple, shapes: dict,
             ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
             ev[0].record()
             t0 = time.perf_counter()
+            rec["depth"].append([])
             b = feed(tr)
             wait = getattr(feed, "wait_s", 0.0)
             host = time.perf_counter() - t0 - wait
@@ -2192,6 +2387,8 @@ def report_disk_run(label: str, trainer, batch: int, rec: dict,
     stds = [[float(x) for x in b] for b in rec["image_std"]]
     convert = [(host, ev[0].elapsed_time(ev[1]))
                for host, ev in rec["convert"]]
+    depth_ms = [sum(e[0].elapsed_time(e[1]) for e in evs)
+                for evs in rec["depth"] if evs]
     log(f"{label} (batch {batch}){cut}: build {rec['build_s']:.1f} s; cold "
         f"{timings[0]['seconds']:.3f} s (loader wait "
         f"{timings[0]['wait_s']:.3f} s), warm "
@@ -2204,6 +2401,8 @@ def report_disk_run(label: str, trainer, batch: int, rec: dict,
         + "; batch conversion (tokenize, copy, CLIP, depths) host ms / "
         "device ms " + ", ".join(f"{1e3 * h:.1f}/{d:.1f}"
                                  for h, d in convert)
+        + "; depth teacher device ms per batch "
+        + ", ".join(f"{d:.2f}" for d in depth_ms)
         + f"; peak memory {rec['peak'] / 2**30:.2f} GiB; launches in the "
         f"last warm step {rec['steps'][-1]}; in the snapshot "
         f"{rec['snapshot']}; image std per batch {stds}; checkpoints "
@@ -2238,7 +2437,7 @@ def report_disk_run(label: str, trainer, batch: int, rec: dict,
         f"{f} {(rec['ckpt'] / 'snapshots' / f).stat().st_size} B"
         for f in snapshot_files))
     return dict(batch=batch, steps=timings, wait_share=share,
-                convert_ms=convert,
+                convert_ms=convert, depth_ms=depth_ms,
                 peak=rec["peak"], launches=rec["steps"][-1],
                 snapshot_launches=rec["snapshot"], metrics=lines)
 
@@ -2273,6 +2472,47 @@ def loader_rates(trainer, images_per_item: int) -> dict:
     one = trainer.batch_size * images_per_item / (time.perf_counter() - t0)
     return dict(workers=workers, processes=procs, threads=threads,
                 one_thread=one)
+
+
+def write_da2_weights(path: Path, seed: int) -> int:
+    """A synthetic Depth-Anything-V2-Small state dict under the HF
+    ``DepthAnythingForDepthEstimation`` names (``hf_da2_names``; the
+    ``mask_token`` and the first fusion layer's unused ``residual_layer1``
+    included), numpy arrays from ``seed`` written with ``torch.save``:
+    matrices and kernels ``N(0, 1/fan_in)``, norm scales near 1, layer
+    scales in [0.1, 1], the rest ``N(0, 0.02^2)``. Returns its tensors."""
+    import numpy as np
+    import torch
+
+    from prometheus_torch.models.depth_anything import (DepthAnythingV2,
+                                                        hf_da2_names)
+
+    with torch.device("meta"):
+        model = DepthAnythingV2()
+    shapes = {n: tuple(p.shape) for n, p in model.named_parameters()}
+    names = hf_da2_names(model)
+    rng = np.random.default_rng(seed)
+    sd = {"backbone.embeddings.mask_token":
+          0.02 * rng.normal(size=(1, shapes["backbone.cls_token"][-1]))}
+    for hf, name in names.items():
+        # HF's unused residual_layer1 has its sibling's shape
+        name = name or names[hf.replace("residual_layer1", "residual_layer2")]
+        name, _, part = name.partition("#")
+        shape = shapes[name]
+        if part:                          # a third of the fused qkv
+            shape = (shape[0] // 3,) + shape[1:]
+        leaf = name.rsplit(".", 1)[1]
+        if leaf in ("ls1", "ls2"):
+            sd[hf] = rng.uniform(0.1, 1.0, size=shape)
+        elif leaf == "weight" and len(shape) >= 2:
+            sd[hf] = rng.normal(size=shape) / math.sqrt(math.prod(shape[1:]))
+        elif leaf == "weight" and "norm" in name:
+            sd[hf] = 1.0 + 0.1 * rng.normal(size=shape)
+        else:
+            sd[hf] = 0.02 * rng.normal(size=shape)
+    torch.save({k: torch.from_numpy(v.astype(np.float32))
+                for k, v in sd.items()}, path)
+    return len(sd)
 
 
 def phase_train_from_disk(seed: int, shapes: dict, binning: dict,
@@ -2323,6 +2563,33 @@ def phase_train_from_disk(seed: int, shapes: dict, binning: dict,
         f"with {rates['workers']} threads, {rates['one_thread']:.1f} in one "
         f"thread; the warm steps consume {need:.1f} images/s")
     out["loader"] = dict(rates, consumed=need, images_per_item=per_item)
+    del trainer, rec
+    gc.collect()
+    torch.cuda.empty_cache()
+    # the same run with the JAX trainer's default teacher: DA2-Small on a
+    # synthetic HF state dict named by the config's depth_weights
+    weights = LOG_DIR / "da2_synthetic.pt"
+    n_tensors = write_da2_weights(weights, seed)
+    step = DISK_DA2_STEPS
+    da2_args = [a if a != "luminance" else "da2" for a in common]
+    trainer, batch, rec = disk_run(
+        "stage 2 from disk --depth_teacher da2", da2_args + [
+            f"depth_weights={weights}", "dataset=chip_mvldm", "--stage",
+            "mvldm", "--max_steps", str(step), "--val_every", str(step)],
+        MVLDM_BATCHES, shapes, "train_disk_da2")
+    out["da2"] = report_disk_run(
+        "stage 2 from disk --depth_teacher da2", trainer, batch, rec,
+        ("flash_attn_fwd", "flash_attn_bwd"), ("flash_attn_fwd",),
+        (f"{step:09d}_val_mv_images.png", f"{step:09d}_val_mv_views.gif"))
+    teacher = rec["teacher"]
+    if type(getattr(teacher, "model", None)).__name__ != "DepthAnythingV2":
+        raise RuntimeError(f"--depth_teacher da2 ran {teacher!r}")
+    lum, da2 = out["mvldm"]["depth_ms"], out["da2"]["depth_ms"]
+    log(f"depth teacher device ms a batch ({batch} scenes x 8 views + "
+        f"{trainer.cfg['images_per_iter']} single-view images a scene at "
+        f"256^2): DA2-Small float32 ({n_tensors} HF tensors loaded) "
+        + "/".join(f"{x:.2f}" for x in da2) + ", luminance "
+        + "/".join(f"{x:.3f}" for x in lum))
     del trainer, rec
     gc.collect()
     torch.cuda.empty_cache()
@@ -2418,6 +2685,8 @@ def main() -> int:
     modes = phase_sampler_modes(pipe, shapes)
     refine = phase_refine(pipe, binning, shapes, entry_b, entry_c)
     cli_refine = phase_cli_refine(pipe, card, shapes)
+    image_to_3d = phase_image_to_3d(pipe, card, shapes, binning)
+    evaluation = phase_eval(pipe, card, shapes)
     del pipe
     torch.cuda.empty_cache()
     entry_a["on_new_shapes"], entry_abwd["on_new_shapes"] = \
@@ -2478,6 +2747,7 @@ def main() -> int:
     entry_abwd["on_new_shapes"] += bwd_rows
     snapshots = (disk["mvldm"]["snapshot_launches"],
                  disk["gsdecoder"]["snapshot_launches"],
+                 disk["da2"]["snapshot_launches"],
                  disk["trajdit_snapshot"])
     paths = {"generate": gen_launches, "generate_trajectory": traj_launches,
              "cli": cli["launches"], "train_step": train_launches,
@@ -2490,6 +2760,9 @@ def main() -> int:
              "train_trajdit": traj_train["launches"],
              "train_disk_mvldm": disk["mvldm"]["launches"],
              "train_disk_gsdecoder": disk["gsdecoder"]["launches"],
+             "image_to_3d": image_to_3d["launches"],
+             "eval": evaluation["launches"],
+             "train_disk_da2": disk["da2"]["launches"],
              "val_snapshot": {k: sum(c[k] for c in snapshots)
                               for k in snapshots[0]}}
     for entry, launches in ((entry_a, traj_launches),
@@ -2507,7 +2780,9 @@ def main() -> int:
     log("csort_pairs_dropped: generate " + str(
         gen_dropped["csort_pairs_dropped"]) + ", train step "
         + str(train_dropped["csort_pairs_dropped"]) + ", stage-2 render-loss "
-        "step " + str(mvldm["render_loss"]["csort"]["csort_pairs_dropped"]))
+        "step " + str(mvldm["render_loss"]["csort"]["csort_pairs_dropped"])
+        + ", image to 3D "
+        + str(image_to_3d["csort"]["csort_pairs_dropped"]))
     log(f"total {time.perf_counter() - t_start:.1f} s")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "shape",
@@ -2528,6 +2803,8 @@ def main() -> int:
         sampler_modes=modes, refine=refine, cli_refine=cli_refine),
         indent=1, default=str))
     (LOG_DIR / "cli.json").write_text(json.dumps(cli, indent=1))
+    (LOG_DIR / "image_to_3d_eval.json").write_text(json.dumps(dict(
+        image_to_3d=image_to_3d, eval=evaluation), indent=1, default=str))
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

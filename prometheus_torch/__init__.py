@@ -4,8 +4,8 @@ NVIDIA H100.
 The layout mirrors the JAX package so each module has an obvious
 counterpart (``utils/``, ``ops/``, ``ops/gaussian/``, ``models/``,
 ``systems/``, ``parallel/``, ``pipeline.py``, ``inference.py``,
-``train.py``, ``checkpoint.py``). Every Pallas
-kernel of the JAX package is hand-written CUDA under ``csrc/``:
+``train.py``, ``eval.py``, ``metrics.py``, ``checkpoint.py``). Every
+Pallas kernel of the JAX package is hand-written CUDA under ``csrc/``:
 
 - ``csrc/flash_attn_fwd.cu`` (kernel A) replaces the Pallas flash attention
   forward reached from ``prometheus_tpu/ops/attention.py`` (wrapper:

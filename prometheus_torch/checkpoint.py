@@ -7,6 +7,9 @@ magnitudes among them), the optimizer's state dict (a bf16 first moment
 stays bf16) and the EMA, and keeps the newest ``keep`` checkpoints. A
 checkpoint is written under a temporary name and renamed, so a cut run
 never leaves a partial ``step_*`` directory.
+
+``load_torch_state_dict`` reads a foreign torch checkpoint (a published
+network's weights) into a flat dict of tensors.
 """
 from __future__ import annotations
 
@@ -88,3 +91,17 @@ def load_ema_weights_(module: torch.nn.Module, path: str) -> None:
     with torch.no_grad():
         for name, value in full_ema_params(module, raw["ema"]).items():
             module.get_parameter(name).copy_(value)
+
+
+def load_torch_state_dict(path: str, key: str | None = None) -> dict:
+    """A torch checkpoint -> ``{name: tensor}`` on the CPU, floating tensors
+    as float32 (``prometheus_tpu/checkpoint.py::load_torch_state_dict``).
+    ``key`` picks an entry of the file first; a ``state_dict`` entry is
+    unwrapped. The file is unpickled: read only trusted files."""
+    blob = torch.load(path, map_location="cpu", weights_only=False)
+    if key is not None:
+        blob = blob[key]
+    if isinstance(blob, dict) and "state_dict" in blob:
+        blob = blob["state_dict"]
+    return {k: v.float() if v.is_floating_point() else v
+            for k, v in blob.items() if isinstance(v, torch.Tensor)}

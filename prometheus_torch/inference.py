@@ -8,20 +8,29 @@ and writes, per prompt and sample, the JAX CLI's files: ``gs_renders.png``,
 ``gs_renders_refined.png`` (with ``--refine``), ``mv_images.png``,
 ``mv_depths.png``, ``gaussians.ply``, ``gaussians.splat``, ``orbit.mp4``
 (``orbit.gif`` where no mp4 writer is installed) and ``meta.json``.
+``--ref_image PNG`` (image to 3D) first writes the same files for the
+scene generated from that image under ``<export_dir>/image_to_3d/``: the
+image is centre-cropped, resized to the MV-LDM's image size and embedded by
+the CLIP image tower, its disparity comes from the DA2-Small teacher, and
+the scene has ``--num_views`` random orbit cameras.
 
     python -m prometheus_torch.inference --prompt "a cozy cabin"
     python -m prometheus_torch.inference --prompt "x" --small --device cpu \\
         --num_steps 2 --num_traj_steps 4 --render_size 32 \\
         --num_video_frames 4 --refine mv_sds --refine_iters 2
+    python -m prometheus_torch.inference --ref_image ref.png --small \\
+        --device cpu --num_steps 2 --render_size 32 --num_video_frames 4
 
-The weights are random (``pipeline.build_pipeline``, seed 0): checkpoint
-loading is not ported, and neither are ``--ckpt``, ``--ref_image`` (image
-to 3D) or ``--shard_views``, so argparse refuses them.
+The weights are random (``pipeline.build_pipeline`` and, for
+``--ref_image``, ``pipeline.attach_image_to_3d``, seed 0): checkpoint
+loading is not ported, and neither are ``--ckpt`` or ``--shard_views``, so
+argparse refuses them.
 
 Seeds: sample ``j`` of prompt ``i`` draws its trajectory, sampler and
-refiner noise from a ``torch.Generator`` seeded from ``(seed + i, j)``. The
-JAX CLI draws from ``PRNGKey(seed + i)`` folded with ``j``, so the two CLIs
-draw different noise from the same ``--seed``.
+refiner noise from a ``torch.Generator`` seeded from ``(seed + i, j)``, the
+image-to-3D scene its cameras and noise from the one seeded from ``(seed,
+0)``. The JAX CLI draws from ``PRNGKey(seed + i)`` folded with ``j``, so the
+two CLIs draw different noise from the same ``--seed``.
 
 ``run(args, pipe)`` drives the CLI with a pipeline that is already built.
 """
@@ -35,9 +44,11 @@ import time
 import numpy as np
 import torch
 
+from .datasets.transforms import (center_crop_and_resize, decode_image,
+                                  normalize_image)
 from .models import CLIPTokenizer
-from .pipeline import build_pipeline
-from .utils import resolve_device
+from .pipeline import attach_image_to_3d, build_pipeline
+from .utils import get_random_cameras, resolve_device
 from .utils.gs_io import export_gaussians
 from .utils.image import (colorize_depth, make_grid, postprocess_image,
                           save_image, save_video)
@@ -48,6 +59,9 @@ def parse_args(argv=None) -> argparse.Namespace:
         description="Text -> 3DGS scene on the PyTorch/CUDA port")
     p.add_argument("--prompt", type=str, default=None)
     p.add_argument("--prompt_file", type=str, default=None)
+    p.add_argument("--ref_image", type=str, default=None,
+                   help="image to 3D: the reference image (CLIP image "
+                        "conditioning), exported to <export_dir>/image_to_3d")
     p.add_argument("--negative_prompt", type=str, default="")
     p.add_argument("--use_3d_mode_every_m_steps", type=int, default=-1,
                    help="render-consistent resampling every m steps (-1 off)")
@@ -146,17 +160,55 @@ def prompts_of(args) -> list[str]:
     if args.prompt_file:
         with open(args.prompt_file) as fp:
             prompts.extend(line.strip() for line in fp if line.strip())
-    if not prompts:
-        raise SystemExit("provide --prompt or --prompt_file")
+    if not prompts and not args.ref_image:
+        raise SystemExit("provide --prompt, --prompt_file, or --ref_image")
     return prompts
 
 
+def load_reference(path: str, size: int) -> torch.Tensor:
+    """The image at ``path``, centre-cropped and resized to ``size``^2, as a
+    ``(1, 1, 3, size, size)`` float32 tensor in [-1, 1]."""
+    with open(path, "rb") as fp:
+        raw = decode_image(fp.read())
+    img, _ = center_crop_and_resize(raw, size)
+    return torch.from_numpy(normalize_image(img))[None, None]
+
+
+def run_image_to_3d(args, pipe) -> dict:
+    """Generate and export the scene of ``--ref_image`` (a random image
+    tower and depth teacher are attached when ``pipe`` has none); returns
+    its record as ``run`` does."""
+    if pipe.image_encoder is None:
+        attach_image_to_3d(pipe, small=args.small, seed=args.seed)
+    ref = load_reference(args.ref_image, pipe.mvldm.model.image_size)
+    g = sample_generator(args.seed, 0, pipe.device)
+    cams = get_random_cameras(args.num_views, g, size=args.image_size,
+                              device=pipe.device)[None]
+    t0 = time.perf_counter()
+    result = pipe.generate_image_to_3d(
+        ref, cams, generator=g, num_inference_steps=args.num_steps,
+        guidance_scale=args.guidance_scale, cfg_rescale=args.cfg_rescale,
+        render_size=args.render_size)
+    dt = time.perf_counter() - t0
+    out_dir = os.path.join(args.export_dir, "image_to_3d")
+    paths, seconds = export_result(result, pipe, f"image:{args.ref_image}",
+                                   out_dir, args)
+    stages = " ".join(f"{k} {v:.3f}" for k, v in result["timings"].items())
+    print(f"[image-to-3d] {args.ref_image} -> {out_dir} ({dt:.1f}s; seconds "
+          f"by stage: {stages})")
+    return dict(out_dir=out_dir, paths=paths, timings=result["timings"],
+                export_seconds=seconds, generate_seconds=dt,
+                n_gaussians=int(result["gaussians"][0].shape[1]),
+                result=result)
+
+
 def run(args, pipe=None) -> list[dict]:
-    """Generate and export every prompt's samples. ``pipe``: a pipeline
-    already built (its device is used), else one is built from ``args``.
-    Returns one record per scene: its directory, files, ``generate``'s
-    stage seconds, the export seconds and the wall seconds of
-    ``generate``."""
+    """Generate and export the ``--ref_image`` scene, then every prompt's
+    samples. ``pipe``: a pipeline already built (its device is used), else
+    one is built from ``args``. Returns one record per scene: its
+    directory, files, ``generate``'s stage seconds, the export seconds and
+    the wall seconds of ``generate`` (the image-to-3D record, first, also
+    holds its ``result``)."""
     prompts = prompts_of(args)
     if pipe is None:
         device = resolve_device(args.device)
@@ -165,12 +217,12 @@ def run(args, pipe=None) -> list[dict]:
         print("[inference] random weights (checkpoint loading is not ported)")
     if args.bpe_vocab:
         pipe.tokenizer = CLIPTokenizer(args.bpe_vocab)
+    records = [run_image_to_3d(args, pipe)] if args.ref_image else []
     refiner = None
-    if args.refine:
+    if args.refine and prompts:
         refiner = pipe.build_refiner(args.refine,
                                      total_iterations=args.refine_iters,
                                      img_size=min(args.render_size, 256))
-    records = []
     for i, prompt in enumerate(prompts):
         for j in range(max(1, args.num_samples)):
             t0 = time.perf_counter()

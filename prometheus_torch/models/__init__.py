@@ -1,4 +1,6 @@
+from .clip_image import CLIPImageEncoder
 from .clip_text import CLIPTextModel, CLIPTokenizer
+from .depth_anything import DepthAnythingV2, make_depth_fn
 from .gs_decoder import GSDecoderModel
 from .mv_ldm import MVLDMModel
 from .ray_dit import CrossViewDiT, CrossViewDiTWrapped
@@ -7,7 +9,8 @@ from .unet_mv import MultiViewUNet, precompute_text_kv
 from .vae import AutoencoderKL
 
 __all__ = [
-    "AutoencoderKL", "CLIPTextModel", "CLIPTokenizer", "CrossViewDiT",
-    "CrossViewDiTWrapped", "GSDecoderModel", "MVLDMModel", "MultiViewUNet",
-    "TrajDiTModel", "precompute_text_kv",
+    "AutoencoderKL", "CLIPImageEncoder", "CLIPTextModel", "CLIPTokenizer",
+    "CrossViewDiT", "CrossViewDiTWrapped", "DepthAnythingV2",
+    "GSDecoderModel", "MVLDMModel", "MultiViewUNet",
+    "TrajDiTModel", "make_depth_fn", "precompute_text_kv",
 ]

@@ -37,7 +37,7 @@ class MVLDMModel(nn.Module):
                  vae_ch_mult: tuple = (1, 2, 4, 4), use_checkpoint: bool = True,
                  in_channels: int | None = None):
         super().__init__()
-        self.image_size = image_size
+        self.image_size, self.context_dim = image_size, context_dim
         self.extra_latent_channel = extra_latent_channel
         self.vae_ch_mult = tuple(vae_ch_mult)
         io_ch = latent_channel + extra_latent_channel        # 15

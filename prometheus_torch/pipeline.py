@@ -8,20 +8,27 @@ type, CFG rescale, optionally guidance on a high-noise interval or 3D mode),
 the VAE 2-D decode of images and depths, the GS decoder with
 ``convert_gaussians``, ``render_views_chunked`` through the compositor
 kernel and, with a refiner from ``build_refiner``, test-time SDS++
-refinement of the gaussians. ``render_orbit_video`` renders the
-slerp-resampled trajectory for the video export. ``build_pipeline`` is the counterpart of
-``bench.py::build_flagship``: flagship width (or the small test width) with
-seeded random weights.
+refinement of the gaussians. ``generate_image_to_3d`` conditions on CLIP
+image embeddings of reference images instead of text and pins the
+reference views to their clean RGB-D latents (``attach_image_to_3d`` gives
+a pipeline its seeded random image tower and depth teacher).
+``render_orbit_video`` renders the slerp-resampled trajectory for the video
+export. ``build_pipeline`` is the counterpart of ``bench.py::
+build_flagship``: flagship width (or the small test width) with seeded
+random weights.
 """
 from __future__ import annotations
 
 import dataclasses
 import math
 import time
+from typing import Callable
 
 import torch
+from torch import nn
 
-from .models import CLIPTokenizer, GSDecoderModel, MVLDMModel, TrajDiTModel
+from .models import (CLIPImageEncoder, CLIPTokenizer, GSDecoderModel,
+                     MVLDMModel, TrajDiTModel, make_depth_fn)
 from .models.traj_dit import camera_to_token
 from .ops.gaussian import convert_gaussians, render_gaussians
 from .systems import MVLDMSystem, TrajDiTSystem
@@ -39,13 +46,33 @@ SMALL_MVLDM = dict(model_channels=64, num_head_channels=32, context_dim=64,
 SMALL_GSDECODER = dict(dit_hidden_size=64, dit_depth=2, dit_num_heads=4,
                        vae_ch=32, vae_ch_mult=(1, 2, 4))
 SMALL_TRAJ = dict(hidden_size=64, num_blocks=2, num_heads=4, text_dim=64)
+# the reduced image tower of ``inference.py --small`` (proj_dim: the
+# MV-LDM's context_dim)
+SMALL_CLIP_IMAGE = dict(image_size=28, width=64, num_heads=4, num_layers=2)
+
+
+def stage_timer(device: torch.device, timings: dict) -> Callable:
+    """``mark(stage)`` records the seconds since the previous mark (or
+    since this call) under ``stage``, the card synchronised first."""
+    t0 = time.perf_counter()
+
+    def mark(stage: str) -> None:
+        nonlocal t0
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        t1 = time.perf_counter()
+        timings[stage] = t1 - t0
+        t0 = t1
+
+    return mark
 
 
 @dataclasses.dataclass(eq=False)
 class PrometheusPipeline:
     """The MV-LDM system, the GS decoder and the TrajDiT system (the
     ``full.ckpt`` analogue). Without ``traj``, ``generate`` needs
-    ``cameras``."""
+    ``cameras``. ``image_encoder`` (a ``CLIPImageEncoder``) and ``depth_fn``
+    (``make_depth_fn``'s) serve ``generate_image_to_3d``."""
 
     mvldm: MVLDMSystem
     gsdecoder: GSDecoderModel
@@ -54,6 +81,8 @@ class PrometheusPipeline:
         default_factory=CLIPTokenizer)
     gs_kwargs: dict = dataclasses.field(default_factory=lambda: dict(
         z_near=0.01, z_far=100.0, s_min=0.001, s_max=1.0))
+    image_encoder: nn.Module | None = None
+    depth_fn: Callable | None = None
 
     @property
     def device(self) -> torch.device:
@@ -142,16 +171,7 @@ class PrometheusPipeline:
             text = [text]
         dev = self.device
         timings = {}
-        t0 = time.perf_counter()
-
-        def mark(stage):
-            nonlocal t0
-            if dev.type == "cuda":
-                torch.cuda.synchronize(dev)
-            t1 = time.perf_counter()
-            timings[stage] = t1 - t0
-            t0 = t1
-
+        mark = stage_timer(dev, timings)
         text_emb = self.encode_text(text)
         uncond_emb = self.encode_text([negative_text]).expand(text_emb.shape)
         mark("encode_text")
@@ -179,28 +199,12 @@ class PrometheusPipeline:
                 cameras, text_emb, uncond_emb, sampler=sampler,
                 cfg_interval_frac=cfg_interval_frac, **kw)
         mark("sample")
-        images_pred, depths_pred = self.mvldm.decode_images_and_depths(latents)
-        mark("decode_2d")
-        gaussians = self.decode_gaussians(latents, cameras)
-        mark("decode_gaussians")
-        images_gs, depths_gs, masks_gs = self.render_views_chunked(
-            cameras, gaussians, h=render_size, w=render_size,
+        result = self._decode_and_render(
+            latents, cameras, dense, render_size, mark,
             tile_capacity=render_tile_capacity)
-        mark("render")
-        result = {
-            "cameras": cameras,
-            "dense_cameras": dense,
-            "latents_pred": latents,
-            "images_pred": images_pred,
-            "depths_pred": depths_pred,
-            "gaussians": gaussians,
-            "images_gs_render": images_gs,
-            "depths_gs_render": depths_gs,
-            "masks_gs_render": masks_gs,
-        }
         if refiner is not None:
             gaussians_sds = refiner.refine_gaussians(
-                gaussians, text_emb[:1], uncond_emb[:1], dense,
+                result["gaussians"], text_emb[:1], uncond_emb[:1], dense,
                 generator=generator)
             img_sds, dep_sds, _ = self.render_views_chunked(
                 cameras, gaussians_sds, h=render_size, w=render_size)
@@ -210,6 +214,92 @@ class PrometheusPipeline:
             mark("refine")
         result["timings"] = timings
         return result
+
+    @torch.no_grad()
+    def generate_image_to_3d(self, ref_images: torch.Tensor,
+                             cameras: torch.Tensor,
+                             generator: torch.Generator | None = None,
+                             ref_idx: tuple = (0,),
+                             num_inference_steps: int = 50,
+                             guidance_scale: float = 7.5,
+                             cfg_rescale: float = 0.7, render_size: int = 512,
+                             latent_hw: int | None = None,
+                             noise: torch.Tensor | None = None) -> dict:
+        """Image -> 3DGS scene (the reference's ``mv_ldm_system.py:865-905``).
+
+        ``ref_images (B, R, 3, H, W)`` in [-1, 1], ``cameras (B, N, 18)``
+        whose views ``ref_idx[k]`` are reference ``k``'s. The CLIP image
+        embeddings of the references (one token each) replace the text,
+        those of an all-zero image the negative text; the reference views'
+        x0 are pinned at every step (``view_mask``, ``ref_latents``) to their
+        clean RGB-D latents ``encode_image(ref) | encode_image(repeat(disp
+        * 2 - 1, 3))``, ``disp`` from ``depth_fn``. Joint CFG with rescale,
+        then the 2-D decode, the gaussians and the renders, as in
+        ``generate``. ``noise (B, N, 8, h, w)``: the sampler's
+        standard-normal start, drawn from ``generator`` when not given.
+        Returns ``generate``'s result dict (``dense_cameras`` are the
+        cameras) with the seconds of ``image_encoder``, ``depth``,
+        ``encode_refs``, ``sample``, ``decode_2d``, ``decode_gaussians`` and
+        ``render`` under ``timings``.
+        """
+        if self.image_encoder is None or self.depth_fn is None:
+            raise ValueError("image-to-3D needs image_encoder and depth_fn "
+                             "(attach_image_to_3d)")
+        dev = self.device
+        timings = {}
+        mark = stage_timer(dev, timings)
+        ref_images = ref_images.to(device=dev, dtype=torch.float32)
+        cameras = cameras.to(device=dev, dtype=torch.float32)
+        B, N = cameras.shape[:2]
+        R = ref_images.shape[1]
+        hw = latent_hw or self.mvldm.model.latent_size
+        flat = ref_images.reshape((B * R,) + ref_images.shape[2:])
+        cond = self.image_encoder(flat).reshape(B, R, -1)
+        uncond = self.image_encoder(torch.zeros_like(flat)).reshape(B, R, -1)
+        mark("image_encoder")
+        disp = self.depth_fn(ref_images)
+        mark("depth")
+        encode = self.mvldm.model.encode_image
+        ref_rd = torch.cat([encode(ref_images),
+                            encode((disp * 2.0 - 1.0).repeat(1, 1, 3, 1, 1))],
+                           dim=2)
+        view_mask = torch.zeros(B, N, 1, hw, hw, device=dev)
+        ref_latents = torch.zeros((B, N) + ref_rd.shape[2:], device=dev,
+                                  dtype=ref_rd.dtype)
+        for k, idx in enumerate(ref_idx):
+            view_mask[:, idx] = 1.0
+            ref_latents[:, idx] = ref_rd[:, k]
+        mark("encode_refs")
+        latents = self.mvldm.sample(
+            cameras, cond, uncond, generator=generator,
+            num_inference_steps=num_inference_steps,
+            guidance_scale=guidance_scale, guidance_type="joint",
+            cfg_rescale=cfg_rescale, latent_hw=hw, noise=noise,
+            view_mask=view_mask, ref_latents=ref_latents)
+        mark("sample")
+        result = self._decode_and_render(latents, cameras, cameras,
+                                         render_size, mark)
+        result["timings"] = timings
+        return result
+
+    def _decode_and_render(self, latents: torch.Tensor, cameras: torch.Tensor,
+                           dense: torch.Tensor, render_size: int,
+                           mark: Callable, **render_kw) -> dict:
+        """Sampled latents -> the 2-D decode, the gaussians and their renders
+        at ``render_size``^2 (``render_kw`` to ``render_views_chunked``): the
+        result dict shared by ``generate`` and ``generate_image_to_3d``."""
+        images_pred, depths_pred = self.mvldm.decode_images_and_depths(latents)
+        mark("decode_2d")
+        gaussians = self.decode_gaussians(latents, cameras)
+        mark("decode_gaussians")
+        images_gs, depths_gs, masks_gs = self.render_views_chunked(
+            cameras, gaussians, h=render_size, w=render_size, **render_kw)
+        mark("render")
+        return {"cameras": cameras, "dense_cameras": dense,
+                "latents_pred": latents, "images_pred": images_pred,
+                "depths_pred": depths_pred, "gaussians": gaussians,
+                "images_gs_render": images_gs, "depths_gs_render": depths_gs,
+                "masks_gs_render": masks_gs}
 
     def build_refiner(self, kind: str = "mv_sds", **overrides):
         """A test-time SDS++ refiner on this pipeline's towers, its weights
@@ -344,3 +434,21 @@ def build_pipeline(small: bool = False, device: str | torch.device = "cuda",
         m.to(dtype).eval()
     return PrometheusPipeline(mvldm=MVLDMSystem(model=mv), gsdecoder=gs,
                               traj=TrajDiTSystem(model=traj))
+
+
+def attach_image_to_3d(pipe: PrometheusPipeline, small: bool = False,
+                       seed: int = 0) -> PrometheusPipeline:
+    """Give ``pipe`` a seeded random CLIP image tower in its own dtype (ViT-H
+    at full width, ``SMALL_CLIP_IMAGE`` with ``small``; projected to the
+    MV-LDM's ``context_dim``) and a seeded random float32 DA2-Small depth
+    teacher (``make_depth_fn``), on its device."""
+    dev = pipe.device
+    model = pipe.mvldm.model
+    with torch.device("meta"):
+        enc = CLIPImageEncoder(proj_dim=model.context_dim,
+                               **(SMALL_CLIP_IMAGE if small else {}))
+    enc.to_empty(device=dev)
+    init_random_(enc, torch.Generator(device=dev).manual_seed(seed))
+    pipe.image_encoder = enc.to(model.unet.conv_in.weight.dtype).eval()
+    pipe.depth_fn = make_depth_fn(device=dev, seed=seed)
+    return pipe

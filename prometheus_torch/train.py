@@ -2,7 +2,7 @@
 
     python -m prometheus_torch.train --stage {mvldm,gsdecoder,trajdit} \\
         [--synthetic | --config CFG --override data_root=DIR ... \\
-         --depth_teacher luminance] \\
+         [--depth_teacher {da2,luminance}]] \\
         [--small] [--max_steps N] [--batch_size B] [--seed S] \\
         [--log_every K] [--save_every K] [--val_every K] [--ckpt_dir DIR] \\
         [--device cpu] [--debug]
@@ -43,8 +43,12 @@ schedule, and without ``--small`` the networks of ``algorithm`` and
 ``gsdecoder``), taking the dicts below where it sets none and refusing a
 value the port cannot honour; ``--seed`` and ``--batch_size`` win. It
 tokenizes the captions, embeds them with the frozen CLIP text tower
-(stage 2), and makes the pseudo-depths with ``--depth_teacher
-luminance``: ``clip(mean_c(images) * 0.5 + 0.5, 0, 1)``.
+(stage 2), and makes the pseudo-depths with the ``--depth_teacher``:
+``da2`` (the default) is Depth-Anything-V2-Small in float32 with the HF
+weights the config's ``depth_weights`` names (without them the run exits:
+a random teacher would supervise on garbage), ``luminance`` is
+``clip(mean_c(images) * 0.5 + 0.5, 0, 1)``. ``--synthetic`` batches carry
+their own depths and use neither.
 
 ``--val_every K`` writes a snapshot every K steps with the EMA weights,
 under ``<ckpt_dir>/snapshots/``: mvldm a 20-step sample of the batch's
@@ -61,10 +65,8 @@ Checkpoints (``checkpoint.py``) go to ``--ckpt_dir`` (default
 there (unless the config's ``training.resume_from_checkpoint`` is not
 ``latest``). It runs on the card unless
 ``--device cpu`` is given; on the card the networks compute in bf16 with
-fp32 parameters (``bf16-mixed``), on the CPU in fp32. ``--sp_views``,
-``--param_sharding fsdp`` and ``--depth_teacher da2`` (the JAX trainer's
-default, which needs DepthAnything-V2 weights) are not ported yet
-(ROADMAP.md) and raise.
+fp32 parameters (``bf16-mixed``), on the CPU in fp32. ``--sp_views`` and
+``--param_sharding fsdp`` are not ported yet (ROADMAP.md) and raise.
 """
 from __future__ import annotations
 
@@ -81,7 +83,7 @@ import torch
 from .checkpoint import (latest_checkpoint, load_ema_weights_,
                          restore_checkpoint, save_checkpoint)
 from .config import DEFAULT_CONFIG, load_config
-from .models import GSDecoderModel, MVLDMModel, TrajDiTModel
+from .models import GSDecoderModel, MVLDMModel, TrajDiTModel, make_depth_fn
 from .models.lpips import make_lpips_fn
 from .ops.schedulers import make_schedule
 from .parallel import (TrainState, freeze_, frozen_components,
@@ -407,16 +409,18 @@ def build_trajdit_trainer(small: bool = False,
 
 class DiskFeed:
     """Batches from disk: the loader's next host batch (a new epoch when
-    one ends), converted to the loss's batch on the device by ``convert``.
-    ``wait_s`` holds the host seconds the last batch waited on the loader.
-    ``close()`` ends the loader's worker processes."""
+    one ends), converted to the loss's batch on the device by ``convert``,
+    whose pseudo-depths come from ``depth_fn`` (``(B, N, 3, H, W)`` ->
+    ``(B, N, 1, H, W)``, read at each call). ``wait_s`` holds the host
+    seconds the last batch waited on the loader. ``close()`` ends the
+    loader's worker processes."""
 
-    def __init__(self, loader, convert: Callable):
+    def __init__(self, loader, convert: Callable, depth_fn: Callable):
         if len(loader) == 0:
             raise ValueError(
                 f"the dataset's {len(loader.dataset)} items make no batch "
                 f"of {loader.batch_sampler.batch_size}")
-        self.loader, self.convert = loader, convert
+        self.loader, self.convert, self.depth_fn = loader, convert, depth_fn
         self.wait_s = 0.0
         self._it = None
 
@@ -557,10 +561,27 @@ def config_settings(cfg, stage: str, small: bool) -> dict:
     return out
 
 
-def attach_disk_feed(trainer: Trainer, cfg, seed: int) -> DiskFeed:
+def depth_teacher(name: str, cfg, device: torch.device) -> Callable:
+    """The pseudo-depth function of ``--depth_teacher``: ``da2`` with the
+    config's ``depth_weights`` (the run exits without them), or
+    ``luminance``."""
+    if name == "luminance":
+        return luminance_depth
+    if not cfg.get("depth_weights"):
+        raise SystemExit(
+            "--depth_teacher da2 needs converted DepthAnything-V2 weights "
+            "(set depth_weights in the config); a randomly initialized "
+            "teacher would supervise on garbage. Use --depth_teacher "
+            "luminance for smoke runs.")
+    return make_depth_fn(weights_path=cfg["depth_weights"], device=device)
+
+
+def attach_disk_feed(trainer: Trainer, cfg, seed: int,
+                     depth_fn: Callable) -> DiskFeed:
     """Build the config's training dataset and its loader, and make the
     trainer's batches come from it: images and cameras to the device
-    (pinned, ``non_blocking``), luminance depths, and for stage 2 the frozen
+    (pinned, ``non_blocking``), ``depth_fn``'s depths (the feed's
+    ``depth_fn``), and for stage 2 the frozen
     CLIP tower's embeddings of the captions (``text_emb``), of the empty
     prompt (``uncond_text_emb``) and of each single-view caption
     (``text_emb_sv``, ``(B, M, 77, D)``); stage 1 draws the encoder's
@@ -607,7 +628,7 @@ def attach_disk_feed(trainer: Trainer, cfg, seed: int) -> DiskFeed:
                 uncond["emb"] = embed([""])
             out = {"images_mv": images,
                    "cameras_mv": to_dev(raw["cameras_mv"]),
-                   "depths_mv": luminance_depth(images),
+                   "depths_mv": feed.depth_fn(images),
                    "text_emb": embed(raw["text_mv"]),
                    "uncond_text_emb": uncond["emb"].expand(
                        (B,) + uncond["emb"].shape[1:])}
@@ -617,7 +638,7 @@ def attach_disk_feed(trainer: Trainer, cfg, seed: int) -> DiskFeed:
                 emb = embed([t for per_item in raw["text_sv"]
                              for t in per_item])
                 out.update(images_sv=images_sv,
-                           depths_sv=luminance_depth(images_sv),
+                           depths_sv=feed.depth_fn(images_sv),
                            text_emb_sv=emb.reshape((B, M) + emb.shape[1:]))
             return out
     else:
@@ -628,12 +649,12 @@ def attach_disk_feed(trainer: Trainer, cfg, seed: int) -> DiskFeed:
             images = images_of(raw, "images_mv")
             return {"images_mv": images,
                     "cameras_mv": to_dev(raw["cameras_mv"]),
-                    "depths_mv": luminance_depth(images),
+                    "depths_mv": feed.depth_fn(images),
                     "encode_noise": torch.randn(
                         images.shape[0], n_in, 4, latent, latent,
                         generator=trainer.generator, device=dev)}
 
-    feed = DiskFeed(loader, convert)
+    feed = DiskFeed(loader, convert, depth_fn)
     trainer.make_batch, trainer.feed = feed, feed
     return feed
 
@@ -743,11 +764,11 @@ def parse_args(argv=None):
                    help="a stage-1 checkpoint of this package (a step_* "
                         "directory, or a directory of them) for "
                         "--render_loss; random decoder if absent")
-    p.add_argument("--depth_teacher", default=None,
+    p.add_argument("--depth_teacher", default="da2",
                    choices=["da2", "luminance"],
-                   help="pseudo-depth of data on disk: luminance is the one "
-                        "that runs (da2, the JAX trainer's default, is not "
-                        "ported yet)")
+                   help="pseudo-depth of data on disk: DepthAnything-V2 "
+                        "(the config's depth_weights) or a cheap luminance "
+                        "proxy (no weights / smoke runs)")
     p.add_argument("--debug", action="store_true",
                    help="anomaly detection in the backward and a NaN / Inf "
                         "check of every batch")
@@ -761,23 +782,20 @@ def parse_args(argv=None):
 def build_trainer(args) -> Trainer:
     """The trainer ``args`` ask for, its batches synthetic or from disk."""
     refused = {"--sp_views": args.sp_views,
-               "--param_sharding fsdp": args.param_sharding == "fsdp",
-               "--depth_teacher da2": args.depth_teacher == "da2"}
+               "--param_sharding fsdp": args.param_sharding == "fsdp"}
     for flag, given in refused.items():
         if given:
             raise NotImplementedError(f"{flag} is not ported yet")
-    cfg = None
+    cfg = depth_fn = None
     if not args.synthetic:
         if args.stage == "trajdit":
             raise ValueError(
                 "--stage trajdit trains on --synthetic batches only: from "
                 "disk its loss would need text embeddings, which the JAX "
                 "trainer does not make outside --stage mvldm either")
-        if args.depth_teacher is None:
-            raise NotImplementedError(
-                "training from disk needs --depth_teacher luminance: da2, "
-                "the JAX trainer's default, is not ported yet")
         cfg = load_config(args.config, args.override)
+        depth_fn = depth_teacher(args.depth_teacher, cfg,
+                                 resolve_device(args.device))
     seed = args.seed if args.seed is not None else int(
         cfg.get("seed", 0) if cfg else 0)
     common = dict(small=args.small, device=args.device, seed=seed,
@@ -794,7 +812,7 @@ def build_trainer(args) -> Trainer:
         common.pop("overrides")
         trainer = build_trajdit_trainer(**common)
     if cfg:
-        attach_disk_feed(trainer, cfg, seed)
+        attach_disk_feed(trainer, cfg, seed, depth_fn)
     return trainer
 
 

@@ -7,7 +7,12 @@ maps onto a PyTorch name mechanically:
 - ``kernel`` becomes ``weight``: Dense ``(in, out)`` -> ``(out, in)``,
   conv HWIO -> OIHW;
 - ``scale`` (LayerNorm, GroupNorm) and ``embedding`` become ``weight``;
-- a raw parameter (TrajDiT's ``pos_embed``) keeps its name and layout;
+- a conv-transpose kernel (flax ``ConvTranspose(transpose_kernel=True)``,
+  ``(kh, kw, out, in)``) takes the conv rule and lands in torch's
+  ``ConvTranspose2d`` layout ``(in, out, kh, kw)`` with no flip;
+- a raw parameter (TrajDiT's ``pos_embed``, the image towers' class and
+  position embeddings, DINOv2's ``cls_token`` and layer scales ``ls1``,
+  ``ls2``) keeps its name and layout;
 - ``batch_stats`` entries (the EMANorm magnitudes) load into buffers.
 """
 from __future__ import annotations
@@ -78,8 +83,9 @@ def load_jax_params(module: nn.Module, tree: Mapping) -> list[str]:
 @torch.no_grad()
 def init_random_(module: nn.Module, generator: torch.Generator) -> None:
     """Seeded random weights: matrices and conv kernels ``N(0, 1/fan_in)``,
-    the text position table ``N(0, 0.01^2)``, norm scales 1, biases and
-    other parameters (TrajDiT's position table) 0, EMANorm magnitudes 1.
+    the CLIP position tables ``N(0, 0.01^2)``, norm scales and DINOv2's
+    layer scales 1, biases and other parameters (TrajDiT's and DINOv2's
+    position tables, class tokens) 0, EMANorm magnitudes 1.
 
     No layer starts at zero (the JAX package zero-initialises its output
     projections), so every block of a randomly initialised model shapes
@@ -91,7 +97,7 @@ def init_random_(module: nn.Module, generator: torch.Generator) -> None:
             p.normal_(0.0, 0.01, generator=generator)
         elif leaf == "weight" and p.dim() >= 2:
             p.normal_(0.0, p[0].numel() ** -0.5, generator=generator)
-        elif leaf == "weight":
+        elif leaf in ("weight", "ls1", "ls2"):
             p.fill_(1.0)
         else:
             p.zero_()

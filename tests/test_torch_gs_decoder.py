@@ -84,9 +84,10 @@ def test_convert_gaussians(rng):
                                atol=1e-5)
     for a, b in zip(out[1:], ref[1:]):
         np.testing.assert_allclose(a.numpy(), np.asarray(b), atol=1e-5)
-    with pytest.raises(NotImplementedError):
+    # gslrm and director3d are held against JAX in test_torch_image_to_3d
+    with pytest.raises(ValueError, match="unsupported gs_convert_mode"):
         convert_gaussians(torch.from_numpy(raw), torch.from_numpy(cams),
-                          mode="gslrm")
+                          mode="splatter")
 
 
 def test_decode_gaussians(small_gs_decoder, rng):

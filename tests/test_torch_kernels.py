@@ -838,3 +838,36 @@ def test_composite_plain_independent_of_threads(rng, scales, opacity):
         torch.set_num_threads(threads)
     assert float((outs[0] - outs[1]).abs().max()) <= 1e-7
     assert float(outs[0][:, 4].max()) > 0.5
+
+
+@pytest.mark.gpu
+def test_image_towers_stay_on_the_plain_path_on_card():
+    """The full-width CLIP ViT-H/14 image tower (257 tokens) and
+    DA2-Small (362 tokens at 256^2, 1370 at 518^2) in bf16 on the card:
+    their attention takes the plain path, as in the JAX package (the flash
+    condition wants T >= 512 and T % 128 == 0), so kernel A's counter does
+    not move; the outputs are finite and of their shapes."""
+    need_card()
+    from prometheus_torch.models import CLIPImageEncoder, DepthAnythingV2
+    from prometheus_torch.weights import init_random_
+
+    g = torch.Generator(device="cuda").manual_seed(0)
+    with torch.device("meta"):
+        towers = (CLIPImageEncoder(), DepthAnythingV2())
+    for m in towers:
+        m.to_empty(device="cuda")
+        init_random_(m, g)
+        m.to(torch.bfloat16).eval()
+    enc, da2 = towers
+    before = FLASH_ATTN_FWD.launches
+    with torch.no_grad():
+        for size in (256, 518):
+            x = torch.rand(2, 3, size, size, generator=g,
+                           device="cuda") * 2 - 1
+            emb, disp = enc(x), da2(x)
+            assert emb.shape == (2, 1024) and emb.dtype == torch.bfloat16
+            assert disp.shape == (2, 1, size, size)
+            assert bool(torch.isfinite(emb).all())
+            assert bool(torch.isfinite(disp).all())
+    torch.cuda.synchronize()
+    assert FLASH_ATTN_FWD.launches == before

@@ -286,11 +286,13 @@ def test_debug_raises_at_a_nan_batch(disk, tmp_path):
 def test_unported_and_wrong_requests_raise(disk, tmp_path):
     with pytest.raises(ValueError, match="trajdit trains on --synthetic"):
         main(argv(disk, tmp_path, stage="trajdit"))
-    with pytest.raises(NotImplementedError, match="da2 is not ported"):
+    # da2 without depth_weights in the config: the JAX trainer's refusal,
+    # whether asked for or taken as the default
+    with pytest.raises(SystemExit, match="needs converted DepthAnything-V2"):
         main(argv(disk, tmp_path) + ["--depth_teacher", "da2"])
     no_teacher = [a for a in argv(disk, tmp_path)
                   if a not in ("--depth_teacher", "luminance")]
-    with pytest.raises(NotImplementedError, match="depth_teacher luminance"):
+    with pytest.raises(SystemExit, match="needs converted DepthAnything-V2"):
         main(no_teacher)
     with pytest.raises(ValueError, match="image_size"):
         main(argv(disk, tmp_path, "image_size=48", "--max_steps", "1"))

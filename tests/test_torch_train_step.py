@@ -31,7 +31,8 @@ from prometheus_tpu.parallel.train_step import make_train_step as jax_step
 from prometheus_torch.parallel import (freeze_, frozen_components,
                                        init_train_state, make_optimizer,
                                        make_train_step)
-from prometheus_torch.train import build_gsdecoder_trainer, main
+from prometheus_torch.train import (build_gsdecoder_trainer, build_trainer,
+                                    main, parse_args)
 
 SHAPES = {"dec_w": (4, 3), "dec_b": (3,), "enc_w": (3, 3)}
 TRAINED = ("dec_w", "dec_b")
@@ -190,8 +191,13 @@ def test_gsdecoder_entry_point_on_cpu(capsys, tmp_path):
         assert not torch.equal(buf, ema_before[name]), name
     assert (tmp_path / "step_000000002" / "state.pt").exists()
     for flags in (["--synthetic", "--sp_views"],
-                  ["--synthetic", "--param_sharding", "fsdp"],
-                  ["--synthetic", "--depth_teacher", "da2"]):
+                  ["--synthetic", "--param_sharding", "fsdp"]):
         with pytest.raises(NotImplementedError, match="not ported"):
             main(["--stage", "gsdecoder", "--device", "cpu", "--small",
                   "--ckpt_dir", str(tmp_path / "refused")] + flags)
+    # --depth_teacher da2 (the default, as in the JAX trainer) is accepted
+    # under --synthetic and unused: no weights asked for, no teacher built
+    synth = build_trainer(parse_args([
+        "--stage", "gsdecoder", "--synthetic", "--depth_teacher", "da2",
+        "--small", "--device", "cpu"]))
+    assert synth.feed is None
