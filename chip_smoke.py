@@ -208,6 +208,10 @@ ATTN_TOL = 1e-2
 # composited RGB and alpha (fp32 throughout; the two versions differ only in
 # the order of float operations)
 COMP_TOL = 1e-4
+# the plain compositor's tiles a call: its (tiles, 256, 128) temporaries stay
+# near 1 GiB each, and the serve path's worklists (up to 65,536 tiles at
+# batch 8) go through it in whole views, this many tiles at a time
+PLAIN_TILES = 8192
 # A-bwd's shapes on the flagship train step, (B, T, H, D): the DiT's joint
 # attention over 4 scenes x 4 input views of 16x16 tokens, and the GS
 # decoder's VAE mid block over 16 latents of 32x32; then the same block at
@@ -282,6 +286,11 @@ DISK_MVLDM_STEPS, DISK_GS_STEPS, DISK_GS_BATCHES = 4, 3, (4, 2, 1)
 # the stage-2 run from disk with the DA2 teacher (a snapshot at the last)
 DISK_DA2_STEPS = 2
 LOADER_BATCHES = 7
+# serving: the batch loop's batch sizes (one that runs out of memory is
+# reported and skipped) over the first prompts of scene_benchmark80, and the
+# HTTP phase's concurrent requests, micro-batch and batching window
+SERVE_BATCHES, SERVE_PROMPTS = (1, 2, 4, 8), 8
+HTTP_REQUESTS, HTTP_MAX_BATCH, HTTP_WINDOW_S = 6, 4, 0.5
 
 
 def log(msg: str) -> None:
@@ -580,18 +589,32 @@ def bin_scene(cams, scene, size: int, cap: int):
     return data, counts
 
 
+def composite_plain_by_views(data, counts, grid_w: int, tpv: int):
+    """``composite_tiles_plain_counted`` over whole views, at most
+    ``PLAIN_TILES`` tiles a call. Its tiles are independent of each other,
+    so the result is that of one call."""
+    import torch
+
+    from prometheus_torch.ops.gaussian.compositor import \
+        composite_tiles_plain_counted
+
+    step = max(tpv, PLAIN_TILES // tpv * tpv)
+    parts = [composite_tiles_plain_counted(data[i:i + step],
+                                           counts[i:i + step], grid_w, tpv)
+             for i in range(0, data.shape[0], step)]
+    return tuple(torch.cat(x) for x in zip(*parts))
+
+
 def check_composite_fwd(label: str, data, counts, grid_w: int,
                         tpv: int) -> dict:
     """Hold kernel B against its plain version on one batch of worklists:
     RGB and alpha absolute, depth relative to the largest depth, rows 5-7
     exactly zero, the times, and the bound counted from the instances this
     data walks and the pairs it keeps."""
-    from prometheus_torch.ops.gaussian.compositor import (
-        composite_tiles, composite_tiles_plain_counted)
+    from prometheus_torch.ops.gaussian.compositor import composite_tiles
 
     out = composite_tiles(data, counts, grid_w, tpv)
-    ref, processed, kept = composite_tiles_plain_counted(data, counts, grid_w,
-                                                         tpv)
+    ref, processed, kept = composite_plain_by_views(data, counts, grid_w, tpv)
     rows = [0, 1, 2, 4]                            # rgb and alpha
     err = float((out[:, rows] - ref[:, rows]).abs().max())
     depth_scale = float(ref[:, 3].abs().max().clamp_min(1.0))
@@ -601,7 +624,7 @@ def check_composite_fwd(label: str, data, counts, grid_w: int,
     del out, ref
     ms = median_ms(lambda: composite_tiles(data, counts, grid_w, tpv))
     plain_ms = cuda_time_ms(
-        lambda: composite_tiles_plain_counted(data, counts, grid_w, tpv),
+        lambda: composite_plain_by_views(data, counts, grid_w, tpv),
         iters=2, warmup=1)
     walked, kept = float(processed.sum()) * 256, float(kept.sum())
     n_t, _, cap = data.shape
@@ -1517,6 +1540,382 @@ def phase_eval(pipe, card: str, shapes: dict) -> dict:
                          if k != "per_prompt"})
 
 
+def benchmark_prompts(n: int) -> list:
+    """The first ``n`` prompts of ``benchmarks/scene_benchmark80``."""
+    from prometheus_torch.eval import load_benchmark
+
+    entries = load_benchmark(str(ROOT / "benchmarks" / "scene_benchmark80"))
+    return [prompt for prompt, _ in entries[:n]]
+
+
+def phase_serve(pipe, card: str, shapes: dict) -> dict:
+    """``python -m prometheus_torch.serve``'s batch loop (its ``run``) on the
+    flagship pipeline over the first ``SERVE_PROMPTS`` prompts of
+    scene_benchmark80 at each batch size of ``SERVE_BATCHES``: 8 views,
+    ``STEPS`` Euler steps, TrajDiT's 100 DDIM steps, render 512, exports.
+    Prints scenes per minute, the warm-up, peak memory and the launches of
+    A and B per batch; checks one ``.ply`` / ``.splat`` pair a scene; holds
+    kernel B against its plain version on the last batch's own worklists
+    (B scenes x 8 views in one launch). A batch size that runs out of
+    memory is reported and skipped."""
+    import gc
+
+    import torch
+
+    from prometheus_torch import serve
+    from prometheus_torch.ops.gaussian import composite_grad
+
+    # keep the worklists of the loop's last compositor call only: a held
+    # worklist (4 GiB at batch 8) must not outlive its batch into the next
+    run_kernel, held = composite_grad.run_compositor_kernel, {}
+
+    def run_held(data, counts, img_h, img_w, tile_size=16):
+        held["calls"] += 1
+        if held["calls"] == held["last"]:
+            n_w = img_w // tile_size
+            held["args"] = (data, counts, n_w, n_w * (img_h // tile_size))
+        return run_kernel(data, counts, img_h, img_w, tile_size)
+
+    out_root = LOG_DIR / "serve"
+    shutil.rmtree(out_root, ignore_errors=True)
+    out_root.mkdir(parents=True)
+    prompts = benchmark_prompts(SERVE_PROMPTS)
+    prompt_file = out_root / "prompts.txt"
+    prompt_file.write_text("\n".join(prompts) + "\n")
+    results, total = {}, dict.fromkeys(read_counts(), 0)
+    shapes["path"] = "serve"
+    for bs in SERVE_BATCHES:
+        export = out_root / f"batch_{bs}"
+        args = serve.parse_args([
+            "--prompt_file", str(prompt_file), "--batch_size", str(bs),
+            "--num_steps", str(STEPS), "--num_views", "8",
+            "--render_size", "512", "--export_dir", str(export)])
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        batches = 1 + math.ceil(len(prompts) / bs)     # the warm-up first
+        held.clear()
+        held.update(calls=0, last=batches)
+        composite_grad.run_compositor_kernel = run_held
+        zero_counts()
+        try:
+            line = serve.run(args, pipe)
+        except torch.cuda.OutOfMemoryError as e:
+            log(f"serve --batch_size {bs} on {card}: out of memory "
+                f"({str(e).splitlines()[0]}); going on to the next size")
+            results[bs] = {"out_of_memory": True}
+            shutil.rmtree(export, ignore_errors=True)
+            continue
+        finally:
+            composite_grad.run_compositor_kernel = run_kernel
+        launches = read_counts()
+        peak = torch.cuda.max_memory_allocated()
+        per_batch = {k: v / batches for k, v in launches.items()}
+        want = sorted(f"{i:04d}.{e}" for i in range(len(prompts))
+                      for e in ("ply", "splat"))
+        files = sorted(p.name for p in export.iterdir())
+        if files != want or any(not (export / n).stat().st_size
+                                for n in files):
+            raise RuntimeError(f"serve --batch_size {bs}: exports {files}")
+        splat = [(export / f"{i:04d}.splat").stat().st_size
+                 for i in range(len(prompts))]
+        if any(s % 32 for s in splat):
+            raise RuntimeError(f"serve: .splat sizes {splat}")
+        for name in ("flash_attn_fwd", "composite_fwd"):
+            if per_batch[name] <= 0:
+                raise RuntimeError(f"serve: {name} was not launched")
+        for k in total:
+            total[k] += launches[k]
+        if held["calls"] != batches:
+            raise RuntimeError(f"serve --batch_size {bs}: {held['calls']} "
+                               f"compositor calls for {batches} batches")
+        data, counts, grid_w, tpv = held.pop("args")
+        check = check_composite_fwd(
+            f"serve --batch_size {bs}, the last batch's worklists: {bs} "
+            f"scenes x 8 views at 512^2", data, counts, grid_w, tpv)
+        del data, counts
+        results[bs] = dict(line, peak_bytes=peak, launches=launches,
+                           launches_per_batch=per_batch, batches=batches,
+                           splat_bytes=splat, composite_fwd=check)
+        log(f"serve batch loop --batch_size {bs} ({len(prompts)} prompts of "
+            f"scene_benchmark80, 8 views, {STEPS} Euler steps, TrajDiT "
+            f"{TRAJ_STEPS} DDIM steps, render 512, .ply + .splat exports) on "
+            f"{card}: scenes_per_min_per_chip "
+            f"{line['scenes_per_min_per_chip']!r}, {line['scenes']} scenes in "
+            f"{line['seconds']!r} s, warmup_s {line['warmup_s']!r}; the "
+            "loop's seconds by stage " + " ".join(
+                f"{k} {v!r}" for k, v in line["stage_seconds"].items())
+            + f", exports {line['export_seconds']!r}; peak "
+            f"memory {peak / 2**30:.2f} GiB; launches per batch "
+            + ", ".join(f"{k} {v:g}" for k, v in per_batch.items()))
+        shutil.rmtree(export)
+    shapes["path"] = None
+    if not any("scenes" in r for r in results.values()):
+        raise RuntimeError("serve: no batch size fitted")
+    return dict(batches=results, launches=total)
+
+
+def phase_serve_http(pipe, card: str, shapes: dict) -> dict:
+    """``serve_http`` on an ephemeral port in a thread (``max_batch``
+    ``HTTP_MAX_BATCH``, a ``HTTP_WINDOW_S`` window, 8 views, ``STEPS``
+    steps, render 512): ``HTTP_REQUESTS`` concurrent ``POST /generate``,
+    then ``GET /healthz``. Requires fewer dispatches than requests, 200 on
+    every one, its files on disk and at least one answer batched."""
+    import threading
+    import urllib.request
+    from concurrent.futures import ThreadPoolExecutor
+
+    import torch
+
+    from prometheus_torch import serve
+
+    out_root = LOG_DIR / "serve_http"
+    shutil.rmtree(out_root, ignore_errors=True)
+    holder, ready = {}, threading.Event()
+
+    def started(srv):
+        holder["srv"] = srv
+        ready.set()
+
+    th = threading.Thread(target=serve.serve_http, args=(pipe, 0), kwargs=dict(
+        export_dir=str(out_root), num_views=8, num_steps=STEPS,
+        render_size=512, started=started, max_batch=HTTP_MAX_BATCH,
+        batch_window_s=HTTP_WINDOW_S), daemon=True)
+    th.start()
+    if not ready.wait(60):
+        raise RuntimeError("serve_http did not start")
+    srv = holder["srv"]
+    base = f"http://127.0.0.1:{srv.server_address[1]}"
+    prompts = benchmark_prompts(HTTP_REQUESTS)
+
+    def post(i: int):
+        req = urllib.request.Request(
+            f"{base}/generate", data=json.dumps(
+                {"prompt": prompts[i], "seed": i}).encode(),
+            headers={"Content-Type": "application/json"}, method="POST")
+        t0 = time.perf_counter()
+        with urllib.request.urlopen(req, timeout=600) as r:
+            return r.status, json.loads(r.read()), time.perf_counter() - t0
+
+    shapes["path"] = "serve_http"
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    try:
+        t0 = time.perf_counter()
+        with ThreadPoolExecutor(HTTP_REQUESTS) as ex:
+            answers = list(ex.map(post, range(HTTP_REQUESTS)))
+        wall = time.perf_counter() - t0
+        launches = read_counts()
+        with urllib.request.urlopen(f"{base}/healthz", timeout=30) as r:
+            health = (r.status, json.loads(r.read()))
+        runs = srv._dispatch_stats["runs"]
+    finally:
+        shapes["path"] = None
+        srv.shutdown()
+        th.join(30)
+    peak = torch.cuda.max_memory_allocated()
+    bad = [a for a in answers if a[0] != 200 or not all(
+        Path(p).stat().st_size for p in a[1]["paths"].values())]
+    if bad or runs >= HTTP_REQUESTS or health != (
+            200, {"status": "ok", "queued": 0}) or not any(
+            a[1]["batched_with"] > 0 for a in answers):
+        raise RuntimeError(f"serve_http: {runs} dispatches, health {health}, "
+                           f"answers {[a[:2] for a in answers]}")
+    log(f"serve_http ({HTTP_REQUESTS} concurrent POST /generate, max_batch "
+        f"{HTTP_MAX_BATCH}, window {HTTP_WINDOW_S} s, 8 views, {STEPS} Euler "
+        f"steps, render 512) on {card}: {runs} dispatches for "
+        f"{HTTP_REQUESTS} requests in {wall:.3f} s; per request (id, "
+        "batched_with, server seconds, client seconds): " + "; ".join(
+            f"{a[1]['id']} {a[1]['batched_with']} {a[1]['seconds']} "
+            f"{a[2]:.3f}" for a in answers)
+        + f"; healthz {health[1]}; peak memory {peak / 2**30:.2f} GiB; "
+        f"launches {launches}")
+    shutil.rmtree(out_root, ignore_errors=True)
+    return dict(dispatches=runs, wall_s=wall, peak_bytes=peak,
+                launches=launches,
+                answers=[dict(a[1], client_s=a[2]) for a in answers])
+
+
+def phase_checkpoint_bundle(pipe, card: str) -> dict:
+    """The flagship pipeline through the release bundle: ``save_bundle``,
+    then ``load_checkpoint`` into a pipeline built from another seed; one
+    ``STEPS``-step ``generate`` in each from the same ``noise`` and
+    ``traj_noise`` must give bit-equal gaussians and renders."""
+    import torch
+
+    from prometheus_torch.checkpoint import save_bundle
+    from prometheus_torch.pipeline import build_pipeline, load_checkpoint
+
+    out = LOG_DIR / "bundle"
+    shutil.rmtree(out, ignore_errors=True)
+    t0 = time.perf_counter()
+    path = Path(save_bundle(str(out), pipe))
+    save_s = time.perf_counter() - t0
+    size = path.stat().st_size
+    fresh = build_pipeline(device="cuda", dtype=torch.bfloat16,
+                           seed=SEED + 1)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    load_checkpoint(fresh, str(out))
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    shutil.rmtree(out)
+    g = torch.Generator(device="cuda").manual_seed(SEED + 2)
+    hw = pipe.mvldm.model.latent_size
+    traj_noise = torch.randn(1, 29, 11, generator=g, device="cuda")
+    noise = torch.randn(1, 8, 8, hw, hw, generator=g, device="cuda")
+    outs = [p.generate(PROMPT, num_inference_steps=STEPS, noise=noise,
+                       traj_noise=traj_noise, render_size=512,
+                       image_size=256) for p in (pipe, fresh)]
+    names = ["images_gs_render", "depths_gs_render", "masks_gs_render",
+             "cameras", "latents_pred"]
+    pairs = [(n, outs[0][n], outs[1][n]) for n in names]
+    pairs += [(f"gaussians[{i}]", a, b) for i, (a, b) in enumerate(
+        zip(outs[0]["gaussians"], outs[1]["gaussians"]))]
+    differ = [n for n, a, b in pairs if not torch.equal(a, b)]
+    n_tensors = sum(len(m.state_dict()) for m in (
+        fresh.mvldm.model, fresh.gsdecoder, fresh.traj.model))
+    log(f"release bundle of the flagship pipeline on {card}: bundle.pt "
+        f"{size} bytes ({size / 1e9:.3f} GB, {n_tensors} tensors, bf16), "
+        f"saved in {save_s:.3f} s, loaded into a pipeline of another seed "
+        f"in {load_s:.3f} s; {STEPS}-step generate from the same noise: "
+        f"{len(pairs) - len(differ)} of {len(pairs)} outputs bit-equal")
+    if differ:
+        raise RuntimeError(f"bundle round trip: {differ} differ")
+    del fresh, outs
+    torch.cuda.empty_cache()
+    return dict(bundle_bytes=size, save_s=save_s, load_s=load_s,
+                tensors=n_tensors)
+
+
+def phase_full_ckpt_layout(pipe, card: str) -> dict:
+    """The published ``full.ckpt`` layout at flagship widths without the
+    file: the pipeline's towers in that layout (``checkpoint.
+    reference_bundle``, with one EMANorm magnitude set to 0.25 and one
+    ``model.decoder_2d.*`` key added, as the reference's decoder carries)
+    through ``convert_bundle`` into a pipeline built from another seed.
+    Zero ``missing`` and ``unassigned`` entries, only the ``decoder_2d``
+    key skipped, and every tensor equal to its source."""
+    import torch
+
+    from prometheus_torch.checkpoint import convert_bundle, reference_bundle
+    from prometheus_torch.pipeline import build_pipeline
+
+    t0 = time.perf_counter()
+    towers = reference_bundle(pipe)
+    towers["decoder"]["model.vae.decoder.up.1.upsample.conv.1."
+                      "magnitude_ema"].fill_(0.25)
+    towers["decoder"]["model.decoder_2d.conv_in.weight"] = torch.zeros(
+        128, 4, 3, 3)
+    build_s = time.perf_counter() - t0
+    target = build_pipeline(device="cuda", dtype=torch.bfloat16,
+                            seed=SEED + 3)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    report = convert_bundle(towers, target)
+    torch.cuda.synchronize()
+    convert_s = time.perf_counter() - t0
+    gaps = {t: {k: r[k] for k in ("missing", "unassigned", "unmapped")
+                if r.get(k)} for t, r in report.items()}
+    skipped = {t: r.get("skipped", []) for t, r in report.items()}
+    if any(gaps.values()) or skipped != {
+            "traj": [], "mvldm": [],
+            "decoder": ["model.decoder_2d.conv_in.weight"]}:
+        raise RuntimeError(f"full.ckpt layout: gaps {gaps}, skipped "
+                           f"{skipped}")
+    differ, n = [], 0
+    for src, dst in ((pipe.mvldm.model, target.mvldm.model),
+                     (pipe.gsdecoder, target.gsdecoder),
+                     (pipe.traj.model, target.traj.model)):
+        want, got = src.state_dict(), dst.state_dict()
+        for k, v in want.items():
+            n += 1
+            if k == "vae.decoder.up_1_upsample.ema_norm.magnitude_ema":
+                v = torch.full_like(v, 0.25)
+            if not torch.equal(got[k], v):
+                differ.append(k)
+    log(f"full.ckpt layout at flagship widths on {card}: tensors converted "
+        f"traj {report['traj']['mapped']}, mvldm "
+        f"{report['mvldm']['mapped']}, decoder {report['decoder']['mapped']}"
+        f" (the EMANorm magnitudes among them); missing 0, unassigned 0, "
+        f"skipped {skipped['decoder']}; {n - len(differ)} of {n} tensors "
+        f"equal their source; layout built in {build_s:.3f} s, converted "
+        f"in {convert_s:.3f} s")
+    if differ:
+        raise RuntimeError(f"full.ckpt layout: {differ[:5]} differ")
+    del target, towers
+    torch.cuda.empty_cache()
+    return dict(mapped={t: r["mapped"] for t, r in report.items()},
+                tensors=n, convert_s=convert_s)
+
+
+def phase_final_ckpt(mvldm_dir: Path, seed: int) -> dict:
+    """``python -m prometheus_torch.tools.create_final_ckpt`` over one
+    ``--small`` ``step_*`` checkpoint each of stage 2 (the round-trip
+    phase's), stage 1 and the TrajDiT stage (one step each, on the card),
+    with the EMA and with ``--no_ema``: every parameter of the loaded
+    bundle equals that stage's EMA (or trained) value, every buffer its
+    checkpoint's."""
+    import torch
+
+    from prometheus_torch.checkpoint import (bundle_widths,
+                                             latest_checkpoint,
+                                             restore_checkpoint,
+                                             save_checkpoint)
+    from prometheus_torch.pipeline import build_pipeline, load_checkpoint
+    from prometheus_torch.tools import create_final_ckpt
+    from prometheus_torch.train import (build_gsdecoder_trainer,
+                                        build_trajdit_trainer)
+
+    root = LOG_DIR / "final_ckpt"
+    shutil.rmtree(root, ignore_errors=True)
+    dirs = {"mvldm": mvldm_dir}
+    for name, build in (("gsdecoder", build_gsdecoder_trainer),
+                        ("traj", build_trajdit_trainer)):
+        trainer = build(small=True, device="cuda", seed=seed)
+        trainer.step()
+        dirs[name] = root / name
+        save_checkpoint(str(dirs[name]), trainer.state, 1)
+    raws = {n: restore_checkpoint(latest_checkpoint(str(d)))
+            for n, d in dirs.items()}
+    checked = {}
+    for use_ema in (True, False):
+        out = root / ("bundle_ema" if use_ema else "bundle_plain")
+        create_final_ckpt.main(
+            [f"--{n}={d}" for n, d in dirs.items()] + ["--out", str(out)]
+            + ([] if use_ema else ["--no_ema"]))
+        pipe = build_pipeline(device="cuda", dtype=torch.float32,
+                              seed=seed + 1, widths=bundle_widths(str(out)))
+        load_checkpoint(pipe, str(out))
+        mods = {"mvldm": pipe.mvldm.model, "gsdecoder": pipe.gsdecoder,
+                "traj": pipe.traj.model}
+        differ, n, n_ema = [], 0, 0
+        for name, raw in raws.items():
+            got = mods[name].state_dict()
+            for k, v in raw["model"].items():
+                want = raw["ema"][k] if use_ema and k in raw["ema"] else v
+                n += 1
+                n_ema += use_ema and k in raw["ema"] and not torch.equal(
+                    raw["ema"][k], v)
+                if not torch.equal(got[k].cpu(), want):
+                    differ.append(f"{name}.{k}")
+        checked["ema" if use_ema else "no_ema"] = dict(tensors=n,
+                                                       ema_differs=n_ema)
+        log(f"create_final_ckpt {'with the EMA' if use_ema else '--no_ema'}"
+            f" over --small step_* checkpoints of stage 2, stage 1 and "
+            f"TrajDiT: {n - len(differ)} of {n} tensors equal to the "
+            f"{'EMA' if use_ema else 'trained'} values"
+            + (f" ({n_ema} of them EMA values that differ from the trained "
+               "ones)" if use_ema else ""))
+        if differ or (use_ema and not n_ema):
+            raise RuntimeError(f"create_final_ckpt: {differ[:5]} differ, "
+                               f"{n_ema} EMA tensors differ from trained")
+        del pipe
+    shutil.rmtree(root)
+    shutil.rmtree(mvldm_dir)
+    return checked
+
+
 def phase_new_attention_shapes(shapes: dict, held: tuple = (),
                                seed: int = 6) -> tuple:
     """Kernels A and A-bwd at every shape the recorded paths gave them that
@@ -2086,6 +2485,7 @@ def phase_train_trajdit_and_checkpoint(seed: int) -> dict:
     small = build_mvldm_trainer(small=True, device="cuda", seed=seed,
                                 joint_sv=True)
     small.step()
+    shutil.rmtree(LOG_DIR / "ckpt_round_trip", ignore_errors=True)
     path = save_checkpoint(str(LOG_DIR / "ckpt_round_trip"), small.state, 1)
     fresh = build_mvldm_trainer(small=True, device="cuda", seed=seed + 1,
                                 joint_sv=True)
@@ -2108,8 +2508,9 @@ def phase_train_trajdit_and_checkpoint(seed: int) -> dict:
         f"{len(pairs) - len(bad)} bit-equal, step {fresh.state.step}")
     if bad or fresh.state.step != small.state.step or not n_bf16:
         raise RuntimeError(f"checkpoint round trip: {bad[:5]} differ")
-    shutil.rmtree(LOG_DIR / "ckpt_round_trip", ignore_errors=True)
-    return dict(steps=steps, launches=launches, tensors=len(pairs))
+    # the checkpoint stays for create_final_ckpt (phase_final_ckpt)
+    return dict(steps=steps, launches=launches, tensors=len(pairs),
+                ckpt_dir=LOG_DIR / "ckpt_round_trip")
 
 
 def write_disk_corpus(root: Path, seed: int) -> dict:
@@ -2687,6 +3088,10 @@ def main() -> int:
     cli_refine = phase_cli_refine(pipe, card, shapes)
     image_to_3d = phase_image_to_3d(pipe, card, shapes, binning)
     evaluation = phase_eval(pipe, card, shapes)
+    serving = phase_serve(pipe, card, shapes)
+    serving_http = phase_serve_http(pipe, card, shapes)
+    bundle = phase_checkpoint_bundle(pipe, card)
+    layout = phase_full_ckpt_layout(pipe, card)
     del pipe
     torch.cuda.empty_cache()
     entry_a["on_new_shapes"], entry_abwd["on_new_shapes"] = \
@@ -2736,6 +3141,7 @@ def main() -> int:
     entry_a["on_new_shapes"] += fwd_rows
     entry_abwd["on_new_shapes"] += bwd_rows
     traj_train = phase_train_trajdit_and_checkpoint(SEED)
+    final_ckpt = phase_final_ckpt(traj_train.pop("ckpt_dir"), SEED)
     # training from disk, and A and A-bwd at the new shapes it recorded
     disk = phase_train_from_disk(
         SEED, shapes, binning,
@@ -2763,6 +3169,8 @@ def main() -> int:
              "image_to_3d": image_to_3d["launches"],
              "eval": evaluation["launches"],
              "train_disk_da2": disk["da2"]["launches"],
+             "serve": serving["launches"],
+             "serve_http": serving_http["launches"],
              "val_snapshot": {k: sum(c[k] for c in snapshots)
                               for k in snapshots[0]}}
     for entry, launches in ((entry_a, traj_launches),
@@ -2777,6 +3185,13 @@ def main() -> int:
             for kind, r in refine.items() if kind != "dead_slots"}
     entry_b["launches_per_orbit_video"] = cli["video_launches"][
         "composite_fwd"]
+    for entry in (entry_a, entry_b):
+        entry["launches_per_serve_batch"] = {
+            bs: r["launches_per_batch"][entry["name"]]
+            for bs, r in serving["batches"].items() if "scenes" in r}
+    entry_b["on_serve_batch"] = {bs: r["composite_fwd"]
+                                 for bs, r in serving["batches"].items()
+                                 if "scenes" in r}
     log("csort_pairs_dropped: generate " + str(
         gen_dropped["csort_pairs_dropped"]) + ", train step "
         + str(train_dropped["csort_pairs_dropped"]) + ", stage-2 render-loss "
@@ -2789,8 +3204,9 @@ def main() -> int:
             "launches_by_path")
     extra = ("on_train_step", "on_orbit_chunk", "on_trained_stats",
              "on_refine_iteration", "on_new_shapes",
-             "on_train_mvldm_render_loss",
+             "on_train_mvldm_render_loss", "on_serve_batch",
              "launches_per_refine_iteration", "launches_per_orbit_video",
+             "launches_per_serve_batch",
              "psnr_vs_exact_db")
     entries = (entry_a, entry_b, entry_abwd, entry_c)
     kernels = [{k: e[k] for k in keys + extra if k in e} for e in entries]
@@ -2805,6 +3221,10 @@ def main() -> int:
     (LOG_DIR / "cli.json").write_text(json.dumps(cli, indent=1))
     (LOG_DIR / "image_to_3d_eval.json").write_text(json.dumps(dict(
         image_to_3d=image_to_3d, eval=evaluation), indent=1, default=str))
+    (LOG_DIR / "serve_checkpoint.json").write_text(json.dumps(dict(
+        serve=serving, serve_http=serving_http, bundle=bundle,
+        full_ckpt_layout=layout, final_ckpt=final_ckpt), indent=1,
+        default=str))
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -20,8 +20,9 @@ and NIQE proxies (``metrics.py``: NSS proxies, not the calibrated scores)
 of each prompt's views, averaged, and their means over the prompts go to
 ``<export_dir>/metrics.json``.
 
-The weights are random (``pipeline.build_pipeline``, seed 0), as in the
-port's inference CLI; ``--ckpt`` is not ported, so argparse refuses it.
+``--ckpt`` loads trained weights as the port's inference CLI does (a
+release bundle directory or a ``full.ckpt``; random weights, seed 0,
+without it).
 Prompt ``i`` draws its noise from the generator of ``inference.
 sample_generator(seed + i, 0)``. ``run(args, pipe)`` drives the CLI with a
 pipeline that is already built.
@@ -37,10 +38,8 @@ import time
 import numpy as np
 import torch
 
-from .inference import sample_generator
+from .inference import pipeline_from_args, sample_generator
 from .metrics import brisque, niqe
-from .pipeline import build_pipeline
-from .utils import resolve_device
 from .utils.image import load_image, make_grid, postprocess_image, save_image
 
 
@@ -60,6 +59,9 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--image_size", type=int, default=512)
     p.add_argument("--small", action="store_true",
                    help="the reduced test widths")
+    p.add_argument("--ckpt", type=str, default=None,
+                   help="a release bundle directory or a full.ckpt file; "
+                        "random weights if absent")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--max_prompts", type=int, default=-1)
     p.add_argument("--traj_idx", type=int, default=0,
@@ -126,13 +128,10 @@ def load_benchmark(bench_dir: str, traj_idx: int = 0) -> list:
 def run(args, pipe=None) -> dict:
     """Sweep the benchmark; returns ``{"summary": metrics.json's dict,
     "records": [per prompt: dir, skipped, seconds, stage timings]}``.
-    ``pipe``: a pipeline already built (its device is used), else one is
+    ``pipe``: a pipeline already built (used as it is), else one is
     built from ``args``."""
     if pipe is None:
-        device = resolve_device(args.device)
-        dtype = torch.bfloat16 if device.type == "cuda" else torch.float32
-        pipe = build_pipeline(small=args.small, device=device, dtype=dtype)
-        print("[eval] random weights (checkpoint loading is not ported)")
+        pipe = pipeline_from_args(args)
     entries = load_benchmark(args.benchmark_dir, traj_idx=args.traj_idx)
     if args.max_prompts > 0:
         entries = entries[:args.max_prompts]

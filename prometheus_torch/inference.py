@@ -15,16 +15,22 @@ the CLIP image tower, its disparity comes from the DA2-Small teacher, and
 the scene has ``--num_views`` random orbit cameras.
 
     python -m prometheus_torch.inference --prompt "a cozy cabin"
+    python -m prometheus_torch.inference --prompt "a cozy cabin" \\
+        --ckpt pretrained/bundle
     python -m prometheus_torch.inference --prompt "x" --small --device cpu \\
         --num_steps 2 --num_traj_steps 4 --render_size 32 \\
         --num_video_frames 4 --refine mv_sds --refine_iters 2
     python -m prometheus_torch.inference --ref_image ref.png --small \\
         --device cpu --num_steps 2 --render_size 32 --num_video_frames 4
 
-The weights are random (``pipeline.build_pipeline`` and, for
-``--ref_image``, ``pipeline.attach_image_to_3d``, seed 0): checkpoint
-loading is not ported, and neither are ``--ckpt`` or ``--shard_views``, so
-argparse refuses them.
+``--ckpt`` loads trained weights (``pipeline.load_checkpoint``): a
+directory is the port's release bundle (``python -m prometheus_torch.tools.
+create_final_ckpt``), a file the reference's published ``full.ckpt``;
+without it, or where the path does not exist, the weights are random
+(``pipeline.build_pipeline``, seed 0), as in the JAX CLI. ``--ref_image``'s
+image tower and depth teacher stay random (``pipeline.
+attach_image_to_3d``). ``--shard_views`` is not ported: argparse refuses
+it.
 
 Seeds: sample ``j`` of prompt ``i`` draws its trajectory, sampler and
 refiner noise from a ``torch.Generator`` seeded from ``(seed + i, j)``, the
@@ -44,10 +50,12 @@ import time
 import numpy as np
 import torch
 
+from .checkpoint import bundle_widths
 from .datasets.transforms import (center_crop_and_resize, decode_image,
                                   normalize_image)
 from .models import CLIPTokenizer
-from .pipeline import attach_image_to_3d, build_pipeline
+from .pipeline import (attach_image_to_3d, build_pipeline,
+                       load_checkpoint)
 from .utils import get_random_cameras, resolve_device
 from .utils.gs_io import export_gaussians
 from .utils.image import (colorize_depth, make_grid, postprocess_image,
@@ -69,6 +77,9 @@ def parse_args(argv=None) -> argparse.Namespace:
                    choices=["sds", "mv_sds"],
                    help="test-time SDS++ refinement of the gaussians")
     p.add_argument("--refine_iters", type=int, default=300)
+    p.add_argument("--ckpt", type=str, default=None,
+                   help="a release bundle directory or a full.ckpt file; "
+                        "random weights if absent")
     p.add_argument("--export_dir", type=str, default="./exports")
     p.add_argument("--num_steps", type=int, default=100)
     p.add_argument("--num_traj_steps", type=int, default=100)
@@ -202,19 +213,31 @@ def run_image_to_3d(args, pipe) -> dict:
                 result=result)
 
 
+def pipeline_from_args(args):
+    """The pipeline of ``--small`` / ``--device`` (bf16 on the card, float32
+    on the CPU) with ``--ckpt``'s weights loaded, or random ones (the JAX
+    CLI's ``build_pipeline``). A bundle directory's towers are built at the
+    widths the bundle records, whatever ``--small`` says."""
+    device = resolve_device(args.device)
+    dtype = torch.bfloat16 if device.type == "cuda" else torch.float32
+    widths = (bundle_widths(args.ckpt) if args.ckpt
+              and os.path.isdir(args.ckpt) else None)
+    pipe = build_pipeline(small=args.small, device=device, dtype=dtype,
+                          widths=widths)
+    load_checkpoint(pipe, args.ckpt)
+    return pipe
+
+
 def run(args, pipe=None) -> list[dict]:
     """Generate and export the ``--ref_image`` scene, then every prompt's
-    samples. ``pipe``: a pipeline already built (its device is used), else
-    one is built from ``args``. Returns one record per scene: its
-    directory, files, ``generate``'s stage seconds, the export seconds and
-    the wall seconds of ``generate`` (the image-to-3D record, first, also
-    holds its ``result``)."""
+    samples. ``pipe``: a pipeline already built (its device and weights
+    are used as they are), else one is built from ``args``. Returns one
+    record per scene: its directory, files, ``generate``'s stage seconds,
+    the export seconds and the wall seconds of ``generate`` (the
+    image-to-3D record, first, also holds its ``result``)."""
     prompts = prompts_of(args)
     if pipe is None:
-        device = resolve_device(args.device)
-        dtype = torch.bfloat16 if device.type == "cuda" else torch.float32
-        pipe = build_pipeline(small=args.small, device=device, dtype=dtype)
-        print("[inference] random weights (checkpoint loading is not ported)")
+        pipe = pipeline_from_args(args)
     if args.bpe_vocab:
         pipe.tokenizer = CLIPTokenizer(args.bpe_vocab)
     records = [run_image_to_3d(args, pipe)] if args.ref_image else []

@@ -9,9 +9,10 @@ summed over the five layers and averaged over the batch.
 
 The official VGG16 and linear-head weights are not in the repository, so
 ``make_lpips_fn`` builds seeded random weights (random-feature LPIPS is still
-a perceptual-style distance); a JAX LPIPS tree loads through
-``weights.load_jax_params`` (conv HWIO -> OIHW, the ``lin{i}`` vectors as
-they are).
+a perceptual-style distance) unless it is given a torch checkpoint of them
+(``weights_path``, read by ``load_torch_lpips_weights``); a JAX LPIPS tree
+loads through ``weights.load_jax_params`` (conv HWIO -> OIHW, the ``lin{i}``
+vectors as they are).
 """
 from __future__ import annotations
 
@@ -75,12 +76,51 @@ class LPIPS(nn.Module):
         return total.mean()
 
 
+# torchvision VGG16's conv indices within ``features``, in block order
+VGG_FEATURE_INDEX = (0, 2, 5, 7, 10, 12, 14, 17, 19, 21, 24, 26, 28)
+
+
+@torch.no_grad()
+def load_torch_lpips_weights(path: str, module: LPIPS) -> LPIPS:
+    """Load a torch LPIPS (+ VGG16) checkpoint into ``module`` in place
+    (``prometheus_tpu/models/lpips.py::load_torch_lpips_weights``).
+
+    Reads torchvision's ``features.<i>.weight`` / ``.bias`` conv keys, or
+    the same under ``net.``, and lpips's ``lin<k>.model.1.weight`` or
+    ``lins.<k>.model.1.weight`` heads (a ``(1, C, 1, 1)`` 1x1 conv, read as
+    its ``C`` weights). Both are torch layouts, so values are copied as
+    they are; a key that is absent leaves its tensor as it was, as in JAX.
+    The file is unpickled: read only trusted files.
+    """
+    from ..checkpoint import load_torch_state_dict
+
+    sd = load_torch_state_dict(path)
+    names = [f"block{b + 1}_conv{c + 1}"
+             for b, (_, n) in enumerate(VGG_BLOCKS) for c in range(n)]
+    for idx, name in zip(VGG_FEATURE_INDEX, names):
+        conv = getattr(module.vgg, name)
+        for pre in ("", "net."):
+            wk, bk = f"{pre}features.{idx}.weight", f"{pre}features.{idx}.bias"
+            if wk in sd:
+                conv.weight.copy_(sd[wk])
+                conv.bias.copy_(sd[bk])
+                break
+    for k in range(len(VGG_BLOCKS)):
+        for cand in (f"lin{k}.model.1.weight", f"lins.{k}.model.1.weight"):
+            if cand in sd:
+                getattr(module, f"lin{k}").copy_(sd[cand].reshape(-1))
+                break
+    return module
+
+
 def make_lpips_fn(generator: torch.Generator | None = None,
-                  device: torch.device | str = "cpu"):
+                  device: torch.device | str = "cpu",
+                  weights_path: str | None = None):
     """A frozen LPIPS with seeded random VGG weights (``init_random_``) and
-    heads at ``1 / C``: ``lpips(pred, target) -> scalar`` for ``(B, 3, H,
-    W)`` or ``(B, N, 3, H, W)`` images; gradients reach the images only.
-    Returns ``(lpips_fn, module)``."""
+    heads at ``1 / C``, or the weights of the torch checkpoint at
+    ``weights_path`` (``load_torch_lpips_weights``): ``lpips(pred, target)
+    -> scalar`` for ``(B, 3, H, W)`` or ``(B, N, 3, H, W)`` images;
+    gradients reach the images only. Returns ``(lpips_fn, module)``."""
     with torch.device("meta"):
         model = LPIPS()
     model.to_empty(device=device)
@@ -89,6 +129,8 @@ def make_lpips_fn(generator: torch.Generator | None = None,
     with torch.no_grad():
         for i, (ch, _) in enumerate(VGG_BLOCKS):
             getattr(model, f"lin{i}").fill_(1.0 / ch)
+    if weights_path:
+        load_torch_lpips_weights(weights_path, model)
     model.requires_grad_(False).eval()
 
     def lpips_fn(pred, target):

@@ -15,7 +15,8 @@ a pipeline its seeded random image tower and depth teacher).
 ``render_orbit_video`` renders the slerp-resampled trajectory for the video
 export. ``build_pipeline`` is the counterpart of ``bench.py::
 build_flagship``: flagship width (or the small test width) with seeded
-random weights.
+random weights; ``load_checkpoint`` then loads trained weights (a release
+bundle or a published ``full.ckpt``), as the JAX CLI's ``--ckpt`` does.
 """
 from __future__ import annotations
 
@@ -35,7 +36,7 @@ from .systems import MVLDMSystem, TrajDiTSystem
 from .utils import (look_at, make_camera, resolve_device,
                     sample_from_dense_cameras)
 from .utils.rays import raymap as make_raymap
-from .weights import init_random_
+from .weights import init_random_, random_module
 
 # the reduced widths of ``bench.py::build_flagship(small=True)``
 SMALL_MVLDM = dict(model_channels=64, num_head_channels=32, context_dim=64,
@@ -405,13 +406,15 @@ def default_camera_token() -> torch.Tensor:
 
 
 def build_pipeline(small: bool = False, device: str | torch.device = "cuda",
-                   dtype: torch.dtype = torch.bfloat16,
-                   seed: int = 0) -> PrometheusPipeline:
+                   dtype: torch.dtype = torch.bfloat16, seed: int = 0,
+                   widths: dict | None = None) -> PrometheusPipeline:
     """The flagship-width pipeline (SD-2.1 U-Net at 256^2 image / 32^2
     latent, CLIP ViT-H text tower, GS decoder with its 16-block cross-view
     DiT, TrajDiT of 8 blocks at width 512) or, with ``small``, the reduced
-    test widths; seeded random weights (``weights.init_random_``) in
-    ``dtype`` on ``device``.
+    test widths; a tower named in ``widths`` (``{"mvldm", "gsdecoder",
+    "traj"}`` constructor kwargs, a bundle's ``checkpoint.bundle_widths``)
+    takes those instead. Seeded random weights (``weights.random_module``)
+    in ``dtype`` on ``device``.
 
     TrajDiT's output layer is then scaled by 0.1 and its bias set to
     ``default_camera_token()``, so that the random trajectory's cameras
@@ -419,14 +422,15 @@ def build_pipeline(small: bool = False, device: str | torch.device = "cuda",
     clamp half the focal lengths to ``1e-3 * image_size``).
     """
     device = resolve_device(device)
-    with torch.device("meta"):
-        mv = MVLDMModel(**(SMALL_MVLDM if small else dict(image_size=256)))
-        gs = GSDecoderModel(**(SMALL_GSDECODER if small else {}))
-        traj = TrajDiTModel(**(SMALL_TRAJ if small else {}))
+    widths = {"mvldm": SMALL_MVLDM if small else dict(image_size=256),
+              "gsdecoder": SMALL_GSDECODER if small else {},
+              "traj": SMALL_TRAJ if small else {},
+              **{k: v for k, v in (widths or {}).items() if v is not None}}
     g = torch.Generator(device=device).manual_seed(seed)
-    for m in (mv, gs, traj):
-        m.to_empty(device=device)
-        init_random_(m, g)
+    mv, gs, traj = (random_module(cls, widths[name], device, g)
+                    for cls, name in ((MVLDMModel, "mvldm"),
+                                      (GSDecoderModel, "gsdecoder"),
+                                      (TrajDiTModel, "traj")))
     with torch.no_grad():
         traj.out_block.weight.mul_(0.1)
         traj.out_block.bias.copy_(default_camera_token())
@@ -452,3 +456,44 @@ def attach_image_to_3d(pipe: PrometheusPipeline, small: bool = False,
     pipe.image_encoder = enc.to(model.unet.conv_in.weight.dtype).eval()
     pipe.depth_fn = make_depth_fn(device=dev, seed=seed)
     return pipe
+
+
+def load_checkpoint(pipe: PrometheusPipeline,
+                    path: str | None) -> dict | None:
+    """Trained weights for ``pipe`` (the ``--ckpt`` of the JAX CLIs'
+    ``build_pipeline``), cast to its dtype on its device.
+
+    A directory is the port's release bundle (``checkpoint.load_bundle``:
+    strict, its widths must be ``pipe``'s; ``inference.pipeline_from_args``
+    builds the pipeline from the bundle's widths). A file is the reference's
+    published ``full.ckpt``, converted in place through ``weight_maps.py``
+    (``checkpoint.convert_bundle(checkpoint.split_full_ckpt(path), pipe)``,
+    which unpickles it: read only trusted files); each tower prints ``N
+    tensors converted, M skipped``, and a WARNING with the first 5
+    unconverted entries where there are any. No ``path``, or one that does
+    not exist, leaves the random weights and says so, as the JAX CLI does.
+    Returns the conversion's report for a ``full.ckpt``, else None.
+    """
+    import os
+
+    from .checkpoint import convert_bundle, load_bundle, split_full_ckpt
+
+    if not path or not os.path.exists(path):
+        print("[inference] no checkpoint given/found - using random weights")
+        return None
+    t0 = time.perf_counter()
+    if os.path.isdir(path):
+        load_bundle(path, pipe)
+        print(f"[inference] loaded the bundle {path} in "
+              f"{time.perf_counter() - t0:.1f}s")
+        return None
+    report = convert_bundle(split_full_ckpt(path), pipe)
+    for tower, r in report.items():
+        bad = (r.get("missing", []) + r.get("unassigned", [])
+               + r.get("unmapped", []))
+        if bad:
+            print(f"[inference] WARNING: {tower}: {len(bad)} unconverted "
+                  f"entries, e.g. {bad[:5]}")
+        print(f"[inference] {tower}: {r['mapped']} tensors converted, "
+              f"{len(r.get('skipped', []))} skipped")
+    return report

@@ -41,14 +41,16 @@ The trainer reads from it every key that ``train.py`` reads
 precision, resume and loss keys of ``training``, the experiment's
 schedule, and without ``--small`` the networks of ``algorithm`` and
 ``gsdecoder``), taking the dicts below where it sets none and refusing a
-value the port cannot honour; ``--seed`` and ``--batch_size`` win. It
-tokenizes the captions, embeds them with the frozen CLIP text tower
-(stage 2), and makes the pseudo-depths with the ``--depth_teacher``:
-``da2`` (the default) is Depth-Anything-V2-Small in float32 with the HF
-weights the config's ``depth_weights`` names (without them the run exits:
-a random teacher would supervise on garbage), ``luminance`` is
-``clip(mean_c(images) * 0.5 + 0.5, 0, 1)``. ``--synthetic`` batches carry
-their own depths and use neither.
+value the port cannot honour; ``--seed`` and ``--batch_size`` win. Its
+``lpips_weights`` (a torch LPIPS + VGG16 checkpoint) gives
+``--render_loss``'s LPIPS its weights. It tokenizes the captions, embeds
+them with the frozen CLIP text tower (stage 2), and makes the
+pseudo-depths with the ``--depth_teacher``: ``da2`` (the default) is
+Depth-Anything-V2-Small in float32 with the HF weights the config's
+``depth_weights`` names (without them the run exits: a random teacher
+would supervise on garbage), ``luminance`` is ``clip(mean_c(images) * 0.5
++ 0.5, 0, 1)``. ``--synthetic`` batches carry their own depths and use
+neither.
 
 ``--val_every K`` writes a snapshot every K steps with the EMA weights,
 under ``<ckpt_dir>/snapshots/``: mvldm a 20-step sample of the batch's
@@ -91,7 +93,7 @@ from .parallel import (TrainState, freeze_, frozen_components,
 from .systems import GSDecoderSystem, MVLDMSystem, TrajDiTSystem
 from .utils import get_random_cameras, resolve_device
 from .utils.nan_guard import assert_finite, enable_nan_debug
-from .weights import init_random_
+from .weights import random_module
 
 # the optimizer and EMA of prometheus_tpu/configs/experiment/
 # mvldm_vpred_exp.yaml (which train.py reads for every stage)
@@ -136,7 +138,7 @@ MVLDM_TRAIN = dict(
     high_noise=False, drop_pose_p=0.1, drop_text_p=0.1, drop_text_p_sv=0.1,
     lambda_sv=1.0,
     lambda_render=0.1, lambda_render_depth=0.5, lambda_render_lpips=1.0,
-    rendering_size=256, adam_mu_dtype=torch.bfloat16)
+    rendering_size=256, adam_mu_dtype=torch.bfloat16, lpips_weights=None)
 SMALL_MVLDM_TRAIN = dict(
     MVLDM_TRAIN,
     model=dict(model_channels=32, num_head_channels=16, context_dim=64,
@@ -241,15 +243,6 @@ class Trainer:
                                self.batch() if batch is None else batch)
 
 
-def _random_module(cls, kwargs: dict, device: torch.device,
-                   g: torch.Generator):
-    with torch.device("meta"):
-        module = cls(**kwargs)
-    module.to_empty(device=device)
-    init_random_(module, g)
-    return module
-
-
 def _finish(stage, system, model, loss_fn, cfg, batch_size, g, make_batch,
             frozen=None) -> Trainer:
     """Freeze, build the optimizer, the train state and the step."""
@@ -283,7 +276,7 @@ def build_gsdecoder_trainer(small: bool = False,
     device = resolve_device(device)
     cfg = dict(CONFIGS[("gsdecoder", small)], **(overrides or {}))
     g = torch.Generator(device=device).manual_seed(seed)
-    model = _random_module(GSDecoderModel, cfg["model"], device, g).train()
+    model = random_module(GSDecoderModel, cfg["model"], device, g).train()
     system = GSDecoderSystem(model, render_size=cfg["render_size"],
                              compute_dtype=_compute_dtype(device, cfg))
     n_in = cfg["num_input_views"]
@@ -319,7 +312,7 @@ def build_mvldm_trainer(small: bool = False,
     cfg = dict(CONFIGS[("mvldm", small)], **(overrides or {}))
     g = torch.Generator(device=device).manual_seed(seed)
     cdt = _compute_dtype(device, cfg)
-    model = _random_module(MVLDMModel, cfg["model"], device, g).train()
+    model = random_module(MVLDMModel, cfg["model"], device, g).train()
     system = MVLDMSystem(model=model,
                          schedule=make_schedule(cfg["scheduler_type"],
                                                 high_noise=cfg["high_noise"]),
@@ -329,7 +322,7 @@ def build_mvldm_trainer(small: bool = False,
     rs = cfg["rendering_size"]
     gs_system = lpips_fn = None
     if render_loss:
-        gs = _random_module(GSDecoderModel, cfg["gsdecoder"], device, g)
+        gs = random_module(GSDecoderModel, cfg["gsdecoder"], device, g)
         if gsdecoder_ckpt:
             load_ema_weights_(gs, gsdecoder_ckpt)
             print(f"[train] frozen stage-1 decoder from {gsdecoder_ckpt}")
@@ -339,10 +332,12 @@ def build_mvldm_trainer(small: bool = False,
         gs.requires_grad_(False).eval()
         gs_system = GSDecoderSystem(gs, render_size=rs, compute_dtype=cdt)
         if cfg["lambda_render_lpips"]:
-            lpips_fn, _ = make_lpips_fn(g, device)
-            print("[train] WARNING: rendering-loss LPIPS uses random-init "
-                  "weights (the official VGG and linear heads are not in "
-                  "the repository)")
+            lpips_fn, _ = make_lpips_fn(g, device,
+                                        weights_path=cfg["lpips_weights"])
+            if not cfg["lpips_weights"]:
+                print("[train] WARNING: rendering-loss LPIPS uses "
+                      "random-init weights (set lpips_weights for the "
+                      "converted official VGG and linear heads)")
     sv_cam = dummy_sv_camera(cfg["image_size"]).to(device)
 
     def loss_fn(batch):
@@ -386,7 +381,7 @@ def build_trajdit_trainer(small: bool = False,
     device = resolve_device(device)
     cfg = CONFIGS[("trajdit", small)]
     g = torch.Generator(device=device).manual_seed(seed)
-    model = _random_module(TrajDiTModel, cfg["model"], device, g).train()
+    model = random_module(TrajDiTModel, cfg["model"], device, g).train()
     system = TrajDiTSystem(model=model)
     cdt = _compute_dtype(device, cfg)
 
@@ -527,8 +522,7 @@ def config_settings(cfg, stage: str, small: bool) -> dict:
                 out[k] = int(tr[k])
     if stage == "mvldm":
         if cfg.get("lpips_weights"):
-            raise NotImplementedError(
-                "lpips_weights: the port's LPIPS has random weights only")
+            out["lpips_weights"] = str(cfg["lpips_weights"])
         out.update(_taken(tr, _MVLDM_LOSS_KEYS))
         out.update(_taken(cfg.get("experiment"), _SCHEDULE_KEYS))
         if "num_input_views" in tr:

@@ -80,6 +80,20 @@ def load_jax_params(module: nn.Module, tree: Mapping) -> list[str]:
     return unused
 
 
+def random_module(cls, kwargs: dict, device: torch.device | str,
+                  generator: torch.Generator) -> nn.Module:
+    """``cls(**kwargs)`` built on the meta device, then materialised on
+    ``device`` with ``init_random_``'s weights from ``generator``. The
+    module keeps ``kwargs`` as ``init_kwargs``: the widths a release
+    bundle records (``checkpoint.save_bundle``)."""
+    with torch.device("meta"):
+        module = cls(**kwargs)
+    module.to_empty(device=device)
+    init_random_(module, generator)
+    module.init_kwargs = dict(kwargs)
+    return module
+
+
 @torch.no_grad()
 def init_random_(module: nn.Module, generator: torch.Generator) -> None:
     """Seeded random weights: matrices and conv kernels ``N(0, 1/fan_in)``,

@@ -487,6 +487,19 @@ def test_load_config_matches_jax(experiment, dataset):
     assert isinstance(port.training, tconfig.Config)
 
 
+@pytest.mark.parametrize("refiner", ["mv_sds_pp", "sds_pp"])
+def test_refiner_group_matches_jax(refiner):
+    """The ``refiner`` group composes in the port as in JAX; only the
+    ``module`` path's package differs."""
+    port = tconfig.load_config(overrides=[f"refiner={refiner}"])
+    ref = jconfig.load_config(os.path.join(JAX_CONFIGS, "config.yaml"),
+                              [f"refiner={refiner}"])
+    assert dict(port) == renamed(ref)
+    assert port.refiner["module"].startswith("prometheus_torch.refiners.")
+    assert ref["refiner"]["module"].startswith("prometheus_tpu.refiners.")
+    assert port.chosen.refiner == refiner
+
+
 def test_config_defaults_and_algorithm_swap():
     port = tconfig.load_config(overrides=["algorithm=mvldm_imgcond"])
     ref = jconfig.load_config(os.path.join(JAX_CONFIGS, "config.yaml"),

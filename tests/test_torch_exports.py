@@ -118,9 +118,9 @@ def test_cli_writes_every_file(tmp_path):
         32, 66, 3)
     assert set(rec["timings"]) == {"encode_text", "trajectory", "sample",
                                    "decode_2d", "decode_gaussians", "render"}
-    for flag in (["--ckpt", "x"], ["--shard_views"]):
-        with pytest.raises(SystemExit):
-            inference.parse_args(["--prompt", "x"] + flag)
+    with pytest.raises(SystemExit):
+        inference.parse_args(["--prompt", "x", "--shard_views"])
+    assert inference.parse_args(["--prompt", "x", "--ckpt", "c"]).ckpt == "c"
     # --ref_image is ported (test_torch_image_to_3d runs it): it parses and
     # stands in for a prompt, while no input at all still exits
     ref = inference.parse_args(["--ref_image", "x.png"])

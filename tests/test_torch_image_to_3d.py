@@ -115,19 +115,22 @@ def small_da2():
     # both raw-parameter kinds and the conv-transpose kernels map with no
     # JAX path left over
     assert load_jax_params(mod, params) == []
-    return jmod, params, mod
+    # one XLA program per input shape, shared by the cases below, in place
+    # of an eager apply's op-by-op dispatch
+    japply = jax.jit(jmod.apply, static_argnames=("normalize",))
+    return japply, params, mod
 
 
 @pytest.mark.parametrize("hw", [(28, 28), (40, 50), (56, 56)])
 def test_da2_small_config_matches_jax(small_da2, rng, hw):
     """28x28 (no padding), 40x50 (edge padding to 42x56, non-square grid,
     the crop back) and 56x56; normalised and raw disparity."""
-    jmod, params, mod = small_da2
+    japply, params, mod = small_da2
     x = f32(rng, 2, 3, *hw)
     for normalize in (True, False):
         with jax.default_matmul_precision("float32"):
-            ref = np.asarray(jmod.apply(params, jnp.asarray(x),
-                                        normalize=normalize))
+            ref = np.asarray(japply(params, jnp.asarray(x),
+                                    normalize=normalize))
         with torch.no_grad():
             out = mod(torch.from_numpy(x), normalize=normalize).numpy()
         assert out.shape == (2, 1) + hw
@@ -157,7 +160,7 @@ def test_da2_small_full_width_matches_jax(rng):
     assert load_jax_params(fn.model, params) == []
     x = f32(rng, 1, 2, 3, 28, 28)
     with jax.default_matmul_precision("float32"):
-        ref = np.asarray(jmod.apply(params, jnp.asarray(x[0])))
+        ref = np.asarray(jax.jit(jmod.apply)(params, jnp.asarray(x[0])))
     out = fn(torch.from_numpy(x)).numpy()
     assert out.shape == (1, 2, 1, 28, 28)
     assert scaled_err(out[0], ref) <= NET_TOL

@@ -347,6 +347,5 @@ def test_config_overrides_are_applied_or_refused(disk, tmp_path):
     with pytest.raises(NotImplementedError, match="use_ema_norm"):
         config_settings(load_config(DEFAULT_CONFIG, [
             "gsdecoder.network.use_ema_norm=false"]), "gsdecoder", False)
-    with pytest.raises(NotImplementedError, match="lpips_weights"):
-        config_settings(load_config(DEFAULT_CONFIG, ["lpips_weights=w.npz"]),
-                        "mvldm", False)
+    assert config_settings(load_config(DEFAULT_CONFIG, [
+        "lpips_weights=w.npz"]), "mvldm", False)["lpips_weights"] == "w.npz"
