@@ -148,14 +148,32 @@ Phases (any failure ends the script with a non-zero exit):
     checkpoints of these runs are recorded, not written (a flagship
     stage-2 state is ~14 GB). A and A-bwd are then held and timed at every
     new shape these runs recorded;
-18. print the ``kernels`` JSON line (each kernel's ``launches`` from the
+18. the sharded paths over ``torch.distributed``, each against its
+    unsharded run on the same inputs (the largest and the mean
+    difference over the largest value, the tolerance, seconds, launches
+    counted from 0 for each run): phase ``dist_nccl``, this process as a
+    one-rank ``nccl`` group, on the flagship pipeline after serving:
+    view-sharded ``generate``, ``decode_and_render_view_sharded``, the
+    tile-sharded 512^2 render, ``serve.generate_batch`` in throughput (2
+    prompts) and latency (1 prompt) modes; after stage 2's phase a
+    data-parallel, an FSDP and an ``--sp_views`` flagship stage-2 step (2
+    scenes x 8 views) against the plain step (loss, every trained
+    parameter after the step, peak memory); phase ``dist_2rank``, 2
+    processes sharing the card over ``gloo`` (``spawn_local``): which
+    collectives ``gloo`` carries on CUDA tensors, one U-Net call and one
+    guided call on 4 + 4 views, view-sharded ``generate`` (8 views, 4
+    steps, render 512), the trained-statistics scene in 2 tile bands (B
+    held on rank 0's band worklists), a 2-prompt throughput ``serve``
+    batch; A and A-bwd held at any new shape these record;
+19. print the ``kernels`` JSON line (each kernel's ``launches`` from the
     path that runs it: ``generate`` without cameras for A and B, the train
     step for A-bwd and C, and every path's counts under
     ``launches_by_path``, the from-disk runs' warm steps and their
     snapshots (``val_snapshot``), image to 3D, eval and the DA2 run among
-    them; B's and C's entries also hold their checks on
-    the other worklists, B's its launches per orbit video and the
-    ``psnr_vs_exact`` readings) and, last, the ``ok`` line.
+    them, and the sharded paths, per rank; B's and C's entries also hold
+    their checks on the other worklists, B's its launches per orbit video,
+    its check on a tile band and the ``psnr_vs_exact`` readings) and,
+    last, the ``ok`` line.
 
 Long logs (the ``nvcc -Xptxas -v`` reports, the profiles' kernel tables,
 the per-shape attention rows) and the CLI's exports go to
@@ -291,6 +309,32 @@ LOADER_BATCHES = 7
 # HTTP phase's concurrent requests, micro-batch and batching window
 SERVE_BATCHES, SERVE_PROMPTS = (1, 2, 4, 8), 8
 HTTP_REQUESTS, HTTP_MAX_BATCH, HTTP_WINDOW_S = 6, 4, 0.5
+# the sharded phases: stage-2 scenes of a phase (a) step; an output of a
+# sharded path against the unsharded one over the largest value of the
+# latter, the largest difference of a tensor, the mean of a render (bf16
+# networks: kernel A's tolerance for one network call, where two ranks put
+# the plain attention at the gathered joint sites in place of kernel A; a
+# one-rank group computes the unsharded path bit for bit); over 4 sampler
+# steps at guidance 7.5 a random network amplifies those rounding
+# differences (on an H100 80GB HBM3 at 700 W: up to 3.2e-2 of the largest
+# latent, a mean of 6.4e-2 of the largest pixel), so the end-to-end paths
+# of 2 ranks are held by their mean at 1e-1; joint CFG at 7.5 multiplies
+# the rows' difference, so a guided call is held at 6e-2. Planted faults (a
+# dropped K/V gather, a zeroed view offset) must fail these limits in every
+# run; on an H100 80GB HBM3 at 700 W the limits sat between these readings,
+# real and planted: one call 1.04e-2 and 4.17e-2, a guided call 3.59e-2
+# and 9.61e-2, generate's render mean 6.39e-2 and 0.116-0.127. A
+# phase (a) step against the plain step: cuDNN's and A-bwd's reductions are
+# not ordered alike from run to run, so the gradient norm before the clip
+# is held relative, the share of trained elements whose update lies within
+# lr / 2 of the plain step's from below (a first AdamW step moves an element
+# by about lr, and an element of a near-zero gradient may move either way),
+# the loss relative, and the parameters absolute (two first steps differ by
+# 2 lr at most)
+DIST_TRAIN_BATCH, DIST_TOL, DIST_E2E_TOL = 2, 2e-2, 1e-1
+DIST_LOSS_TOL, DIST_PARAM_TOL = 1e-3, 2.5e-5
+DIST_GRAD_NORM_TOL, DIST_UPDATE_AGREE = 1e-3, 0.99
+DIST_GUIDED_TOL = 6e-2
 
 
 def log(msg: str) -> None:
@@ -2728,11 +2772,11 @@ def disk_run(label: str, argv: list, batches: tuple, shapes: dict,
                                      ("images_mv", "images_sv") if k in b])
             return b
 
-        def counted_snapshot(tr, step_, b, logger, snap=train.
-                             validation_snapshot):
+        def counted_snapshot(tr, step_, b, logger, ema=None,
+                             snap=train.validation_snapshot):
             zero_counts()
             try:
-                snap(tr, step_, b, logger)
+                snap(tr, step_, b, logger, ema=ema)
             except Exception as e:
                 rec["snapshot_error"] = repr(e)
                 raise
@@ -3049,6 +3093,681 @@ def phase_train_from_disk(seed: int, shapes: dict, binning: dict,
     return out
 
 
+class nccl_world:
+    """A process group of this process alone over ``nccl`` on card 0 for a
+    ``with`` block (world size 1: the sharded paths run their collectives
+    on the card); yields the group."""
+
+    def __enter__(self):
+        import torch
+        import torch.distributed as dist
+
+        from prometheus_torch.parallel.dist import free_port
+
+        dist.init_process_group(
+            "nccl", init_method=f"tcp://127.0.0.1:{free_port()}", rank=0,
+            world_size=1, device_id=torch.device("cuda", 0))
+        return dist.group.WORLD
+
+    def __exit__(self, *exc):
+        import torch.distributed as dist
+
+        dist.destroy_process_group()
+
+
+# render outputs, held by their mean difference: a splat whose alpha
+# crosses the cutoff changes its pixels whole
+RENDERS = ("images_gs_render", "depths_gs_render", "masks_gs_render",
+           "images", "depths", "masks")
+
+
+def diff_rows(label: str, pairs: list, tol: float,
+              held: str | None = None) -> list:
+    """``(name, sharded, unsharded)`` tensors: the largest and the mean
+    difference over the largest value of the unsharded one, each row with
+    the limit ``tol`` on the one it holds (for a render the mean;
+    ``held`` "mean": every tensor's mean) and whether it is within."""
+    rows = []
+    for name, a, b in pairs:
+        if tuple(a.shape) != tuple(b.shape):
+            raise RuntimeError(f"{label} {name}: shape {tuple(a.shape)} != "
+                               f"{tuple(b.shape)}")
+        a, b = a.float(), b.float().to(a.device)
+        top = b.abs().max().clamp_min(1e-12)
+        d = (a - b).abs()
+        row = dict(check=f"{label}: {name}", max_err=float(d.max() / top),
+                   mean_err=float(d.mean() / top), tol=tol,
+                   held=held or ("mean" if name in RENDERS else "max"))
+        row["within"] = row[f"{row['held']}_err"] <= tol
+        rows.append(row)
+    return rows
+
+
+def log_rows(label: str, rows: list, tol: float, held: str | None,
+             what: str = "sharded against unsharded") -> None:
+    log(f"{label}: the largest / mean difference over the largest value, "
+        f"{what}: " + ", ".join(
+            f"{r['check'].split(': ', 1)[1]} {r['max_err']:.3e} / "
+            f"{r['mean_err']:.3e}" for r in rows)
+        + (f" (tol {tol:g} on the mean)" if held == "mean" else
+           f" (tol {tol:g}: the mean of a render, the largest of the rest)"))
+
+
+def hold_checks(label: str, pairs: list, tol: float,
+                held: str | None = None) -> list:
+    """``diff_rows``, printed; raises past the limit."""
+    rows = diff_rows(label, pairs, tol, held)
+    log_rows(label, rows, tol, held)
+    bad = [r for r in rows if not r["within"]]
+    if bad:
+        raise RuntimeError(f"{label}: {bad}")
+    return rows
+
+
+def must_fail(label: str, pairs: list, tol: float,
+              held: str | None = None) -> list:
+    """``diff_rows`` of a run with a planted fault, printed; raises unless
+    some row passes the limit (the check would not see the fault)."""
+    rows = diff_rows(label, pairs, tol, held)
+    log_rows(label, rows, tol, held, "planted fault against unsharded")
+    if all(r["within"] for r in rows):
+        raise RuntimeError(f"{label}: the limit {tol:g} does not see the "
+                           f"planted fault: {rows}")
+    return rows
+
+
+def result_pairs(got: dict, ref: dict, keys: tuple) -> list:
+    pairs = [(k, got[k], ref[k]) for k in keys]
+    pairs += [(f"gaussians[{i}]", a, b) for i, (a, b) in enumerate(zip(
+        got["gaussians"], ref["gaussians"]))]
+    return pairs
+
+
+GEN_KEYS = ("latents_pred", "images_pred", "depths_pred", "images_gs_render",
+            "depths_gs_render", "masks_gs_render")
+SERVE_KEYS = ("cameras", "latents_pred", "images_gs_render",
+              "depths_gs_render")
+
+
+def phase_dist_inference(pipe, kw: dict, card: str, shapes: dict) -> dict:
+    """Phase (a), inference: over a one-rank ``nccl`` group on the card,
+    view-sharded ``generate``, ``decode_and_render_view_sharded``, the
+    tile-sharded 512^2 render and ``serve``'s throughput and latency modes,
+    each against its unsharded path on the same inputs, with its launches
+    (counters set to 0 just before each sharded run) and seconds."""
+    import torch
+
+    from prometheus_torch import serve
+    from prometheus_torch.ops.gaussian import (render_gaussians,
+                                               render_gaussians_tile_sharded)
+
+    cams = kw["cameras"]
+    gen_kw = {k: v for k, v in kw.items() if k not in ("cameras",
+                                                        "generator")}
+    model = pipe.mvldm.model
+    mk = dict(num_views=8, num_inference_steps=STEPS, render_size=512,
+              image_size=model.image_size, latent_hw=model.latent_size)
+    prompts = benchmark_prompts(2)
+
+    def gen(**extra):
+        g = torch.Generator(device="cuda").manual_seed(SEED)
+        return pipe.generate(PROMPT, cameras=cams, generator=g, **gen_kw,
+                             **extra)
+
+    def seeded():
+        return torch.Generator(device="cuda").manual_seed(SEED)
+
+    out, launches, seconds = {}, {}, {}
+    t_phase = time.perf_counter()
+    with nccl_world() as group:
+        def timed(path, fn):
+            torch.cuda.synchronize()
+            zero_counts()
+            shapes["path"] = path
+            t0 = time.perf_counter()
+            res = fn()
+            torch.cuda.synchronize()
+            seconds[path] = time.perf_counter() - t0
+            launches[path] = read_counts()
+            shapes["path"] = None
+            return res
+
+        plain = gen()
+        sharded = timed("dist_generate",
+                        lambda: gen(view_shard_group=group))
+        check_generate_outputs(sharded, launches["dist_generate"])
+        out["generate"] = hold_checks(
+            "view-sharded generate (nccl, world 1)",
+            result_pairs(sharded, plain, GEN_KEYS), DIST_TOL)
+        del sharded
+        dr = timed("dist_decode_render",
+                   lambda: pipe.decode_and_render_view_sharded(
+                       group, plain["latents_pred"], cams,
+                       render_size=kw["render_size"]))
+        out["decode_and_render"] = hold_checks(
+            "decode_and_render_view_sharded (nccl, world 1)",
+            result_pairs(dr, plain, GEN_KEYS[1:]), DIST_TOL)
+        del dr
+        size = kw["render_size"]
+        ref = render_gaussians(cams, plain["gaussians"], h=size, w=size)
+        tile = timed("dist_tile_render",
+                     lambda: render_gaussians_tile_sharded(
+                         group, cams, plain["gaussians"], h=size, w=size))
+        out["tile_render"] = hold_checks(
+            "tile-sharded render 512^2 (nccl, world 1)",
+            list(zip(("images", "depths", "masks"), tile, ref)), DIST_TOL)
+        del tile, ref, plain
+        ref = serve.generate_batch(pipe, prompts, seeded(), **mk)
+        thr = timed("dist_serve_throughput",
+                    lambda: serve.generate_batch(pipe, prompts, seeded(),
+                                                 group=group, **mk))
+        out["serve_throughput"] = hold_checks(
+            "serve throughput mode, 2 prompts (nccl, world 1)",
+            result_pairs(thr, ref, SERVE_KEYS), DIST_TOL)
+        del thr, ref
+        ref = serve.generate_batch(pipe, prompts[:1], seeded(), **mk)
+        lat = timed("dist_serve_latency",
+                    lambda: serve.generate_batch(pipe, prompts[:1], seeded(),
+                                                 group=group,
+                                                 shard_views=True, **mk))
+        out["serve_latency"] = hold_checks(
+            "serve latency mode, 1 prompt (nccl, world 1)",
+            result_pairs(lat, ref, SERVE_KEYS), DIST_TOL)
+        del lat, ref
+    for path, counts in launches.items():
+        need = ("composite_fwd",) if "tile" in path else (
+            "flash_attn_fwd", "composite_fwd")
+        for name in need:
+            if counts[name] <= 0:
+                raise RuntimeError(f"{path}: {name} was not launched")
+    log(f"phase dist_nccl (inference) on {card}: "
+        f"{time.perf_counter() - t_phase:.1f} s; seconds by path "
+        + ", ".join(f"{k} {v:.3f}" for k, v in seconds.items())
+        + "; launches " + "; ".join(f"{k} {v}" for k, v in launches.items()))
+    return dict(checks=out, launches=launches, seconds=seconds)
+
+
+def step_agreement(rec: dict, params: dict, plain: dict, ref: dict,
+                   lr: float) -> dict:
+    """A step against the plain step from the same seed (so the same
+    parameters before it): the gradient norm before the clip relative to
+    the plain step's (the reductions' scale, which the clip and AdamW
+    cancel in the update), the share of trained elements whose update is
+    within ``lr / 2`` of the plain step's (a first AdamW step moves an
+    element by about ``lr``: an update not written back, of the wrong sign
+    or of another size disagrees), the loss relative and the largest
+    parameter difference; ``ok`` when every limit holds."""
+    agree = total = 0
+    worst = 0.0
+    for n, r in ref.items():
+        d = (params[n] - r).abs()
+        agree += int((d <= 0.5 * lr).sum())
+        total += d.numel()
+        worst = max(worst, float(d.max()))
+    out = dict(
+        grad_norm=rec["grad_norm"],
+        grad_norm_rel_diff=abs(rec["grad_norm"] - plain["grad_norm"])
+        / plain["grad_norm"],
+        update_agreement=agree / total, max_param_diff=worst,
+        loss_rel_diff=abs(rec["loss"] - plain["loss"]) / abs(plain["loss"]))
+    out["ok"] = (out["grad_norm_rel_diff"] <= DIST_GRAD_NORM_TOL
+                 and out["update_agreement"] >= DIST_UPDATE_AGREE
+                 and out["loss_rel_diff"] <= DIST_LOSS_TOL
+                 and out["max_param_diff"] <= DIST_PARAM_TOL)
+    return out
+
+
+def phase_dist_train(card: str, shapes: dict) -> dict:
+    """Phase (a), training: one flagship stage-2 step (``DIST_TRAIN_BATCH``
+    scenes x 8 views) plain, data parallel, ``--param_sharding fsdp`` and
+    ``--sp_views`` over a one-rank ``nccl`` group, each from the same
+    seed, held against the plain step by ``step_agreement`` (gradient
+    norm, updates, loss), with peak memory, seconds and launches (A and
+    A-bwd > 0). Then planted faults, each of which the limits must catch:
+    an FSDP step whose updated slices are never written back, a data
+    parallel step whose gradient is doubled (a sum over 2 ranks where
+    their mean is due) and one whose gradient has the wrong sign."""
+    import gc
+
+    import torch
+
+    from prometheus_torch.parallel import ZeroShards
+    from prometheus_torch.train import Parallel, build_mvldm_trainer
+
+    def one_step(par, path, fault=None):
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        tr = build_mvldm_trainer(device="cuda", seed=SEED,
+                                 batch_size=DIST_TRAIN_BATCH, parallel=par)
+        if fault is not None:       # the gradient scaled, the loss kept
+            loss_fn = tr.loss_fn
+
+            def scaled(b):
+                loss, metrics = loss_fn(b)
+                return fault * loss - (fault - 1.0) * loss.detach(), metrics
+
+            tr.loss_fn = scaled
+        batch = tr.batch()
+        torch.cuda.synchronize()
+        zero_counts()
+        shapes["path"] = path
+        t0 = time.perf_counter()
+        m = tr.step(batch)
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t0
+        counts = read_counts()
+        shapes["path"] = None
+        params = {n: p.detach().clone() for n, p in
+                  tr.state.model.named_parameters() if p.requires_grad}
+        rec = dict(loss=float(m["loss"]), grad_norm=float(m["grad_norm"]),
+                   seconds=sec, peak_bytes=torch.cuda.max_memory_allocated(),
+                   launches=counts, lr=tr.cfg["learning_rate"])
+        if par.fsdp:
+            rec["sharded_params"] = len(tr.state.sharding.sharded())
+        del tr, batch, m
+        return rec, params
+
+    t_phase = time.perf_counter()
+    plain, ref = one_step(Parallel(), "dist_plain_step")
+    lr = plain["lr"]
+    out = {"plain": plain, "faults": {}}
+    # the plain step's parameters stay on the card beside each later step
+    held = sum(t.numel() * t.element_size() for t in ref.values())
+
+    def limits(c: dict) -> str:
+        return (f"gradient norm {c['grad_norm']!r} against the plain "
+                f"step's {plain['grad_norm']!r} (relative "
+                f"{c['grad_norm_rel_diff']:.3e}, tol "
+                f"{DIST_GRAD_NORM_TOL:g}); {c['update_agreement']:.6f} of "
+                f"the trained elements' updates within lr/2 of the plain "
+                f"step's (at least {DIST_UPDATE_AGREE:g}); loss relative "
+                f"{c['loss_rel_diff']:.3e} (tol {DIST_LOSS_TOL:g}); largest "
+                f"parameter difference {c['max_param_diff']:.3e} (tol "
+                f"{DIST_PARAM_TOL:g})")
+
+    with nccl_world() as group:
+        modes = {"dp": dict(), "fsdp": dict(fsdp=True, shard_group=group),
+                 "sp_views": dict(sp_views=True)}
+        for mode, extra in modes.items():
+            rec, params = one_step(Parallel(group=group, **extra),
+                                   f"dist_{mode}_step")
+            rec.update(step_agreement(rec, params, plain, ref, lr))
+            rec["peak_bytes"] -= held
+            del params
+            for name in ("flash_attn_fwd", "flash_attn_bwd"):
+                if rec["launches"][name] <= 0:
+                    raise RuntimeError(f"{mode} step: {name} not launched")
+            log(f"stage-2 {mode} step over nccl (world 1, batch "
+                f"{DIST_TRAIN_BATCH} x 8 views, flagship, bf16-mixed) on "
+                f"{card}: {limits(rec)}; loss {rec['loss']!r}; "
+                f"{rec['seconds']:.3f} s; peak "
+                f"{rec['peak_bytes'] / 2**30:.2f} GiB without the plain "
+                f"step's parameters held beside it (plain "
+                f"{plain['peak_bytes'] / 2**30:.2f}); launches "
+                f"{rec['launches']}" + (
+                    f"; {rec['sharded_params']} parameters split"
+                    if "sharded_params" in rec else "")
+                + (" ok" if rec["ok"] else " FAIL"))
+            if not rec["ok"]:
+                raise RuntimeError(f"{mode} step disagrees with the plain "
+                                   "step")
+            out[mode] = rec
+        put_params = ZeroShards.put_params
+        faults = {
+            "fsdp, updated slices not written back": (
+                dict(fsdp=True, shard_group=group), None),
+            "data parallel, gradient doubled": (dict(), 2.0),
+            "data parallel, gradient of the wrong sign": (dict(), -1.0)}
+        for name, (extra, scale) in faults.items():
+            if scale is None:
+                ZeroShards.put_params = lambda self: None
+            try:
+                rec, params = one_step(Parallel(group=group, **extra),
+                                       "dist_fault", fault=scale)
+            finally:
+                ZeroShards.put_params = put_params
+            c = step_agreement(rec, params, plain, ref, lr)
+            del params
+            log(f"planted fault ({name}) on {card}: {limits(c)}"
+                + (" caught" if not c["ok"] else " NOT CAUGHT"))
+            if c["ok"]:
+                raise RuntimeError(f"the step checks cannot see a planted "
+                                   f"fault: {name}")
+            out["faults"][name] = c
+    del ref
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"phase dist_nccl (training) on {card}: "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
+def probe_collectives(device) -> dict:
+    """Which collectives the default group carries on ``device`` tensors:
+    True, or the error's first line."""
+    import torch
+    import torch.distributed as dist
+
+    out = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        x = torch.ones(8, device=device, dtype=dtype)
+        name = str(dtype).split(".")[1]
+        ops = {f"all_gather {name}": lambda: dist.all_gather(
+                   [torch.empty_like(x) for _ in range(dist.get_world_size())],
+                   x),
+               f"all_reduce {name}": lambda: dist.all_reduce(x.clone()),
+               f"broadcast {name}": lambda: dist.broadcast(x.clone(), 0)}
+        for op, fn in ops.items():
+            try:
+                fn()
+                out[op] = True
+            except Exception as e:  # noqa: BLE001 - recorded, not hidden
+                out[op] = str(e).splitlines()[0][:120]
+    for op, fn in (("gather_object", lambda: dist.gather_object(
+            1, [None] * dist.get_world_size() if dist.get_rank() == 0
+            else None, dst=0)),
+                   ("broadcast_object_list",
+                    lambda: dist.broadcast_object_list([1], src=0))):
+        try:
+            fn()
+            out[op] = True
+        except Exception as e:  # noqa: BLE001
+            out[op] = str(e).splitlines()[0][:120]
+    return out
+
+
+def dist2_rank(rank: int, world: int, seed: int) -> dict:
+    """Phase (b) on one of 2 processes that share the card over ``gloo``:
+    view-sharded flagship ``generate`` (8 views, 4 a rank, ``STEPS`` steps,
+    render 512), the tile-sharded render in 2 bands of the
+    trained-statistics scene (524,288 gaussians in those 8 views at 512^2:
+    random weights' scenes drop tile pairs at the csort caps, and a band,
+    binning fewer gaussians, drops fewer, so only a scene that drops none
+    can equal one render), a 2-prompt throughput ``serve`` batch; rank 0
+    then runs each unsharded on the same inputs and holds kernel B on its
+    band's worklists.
+
+    At more than one rank the joint sites gather K and V (``Tq != Tk``)
+    and take the plain attention, so rank 0 runs each network path twice:
+    as one process does (kernel A at those sites too: the difference
+    kernel A makes, measured on its own) and with the plain attention at
+    the sites the ranks gathered at (``plain_at_joint``), each held at
+    the same limit. Planted faults run on both ranks: the guided call and
+    ``generate`` with the K/V gather dropped, ``generate`` with the GS
+    decoder's view offset zeroed; each must fail the limit its check
+    holds."""
+    import torch
+    import torch.distributed as dist
+
+    from prometheus_torch import serve
+    from prometheus_torch.models import dit, ray_dit, unet_mv
+    from prometheus_torch.ops import attention
+    from prometheus_torch.ops.gaussian import (composite_grad,
+                                               render_gaussians,
+                                               render_gaussians_tile_sharded)
+    from prometheus_torch.ops.gaussian.quality import \
+        make_trained_stats_scene
+    from prometheus_torch.parallel.dist import all_gather_cat, broadcast_
+    from prometheus_torch.pipeline import build_pipeline
+    from prometheus_torch.utils import get_random_cameras
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.set_device(0)
+    dev = torch.device("cuda", 0)
+    out = {"collectives": probe_collectives(dev), "launches": {},
+           "seconds": {}}
+    shapes = record_attention_shapes()
+    group = dist.group.WORLD
+    pipe = build_pipeline(small=False, device=dev, dtype=torch.bfloat16,
+                          seed=seed)
+    model = pipe.mvldm.model
+
+    def seeded():
+        return torch.Generator(device=dev).manual_seed(seed)
+
+    cams = get_random_cameras(8, seeded(), size=256, device=dev)[None]
+    gen_kw = dict(cameras=cams, num_inference_steps=STEPS,
+                  guidance_scale=7.5, guidance_type="joint", cfg_rescale=0.7,
+                  render_size=512, render_tile_capacity=1024)
+    mk = dict(num_views=8, num_inference_steps=STEPS, render_size=512,
+              image_size=model.image_size, latent_hw=model.latent_size)
+    prompts = benchmark_prompts(2)
+    run_kernel, held = composite_grad.run_compositor_kernel, {}
+
+    def run_held(data, counts, img_h, img_w, tile_size=16):
+        n_w = img_w // tile_size
+        held["args"] = (data, counts, n_w, n_w * (img_h // tile_size))
+        return run_kernel(data, counts, img_h, img_w, tile_size)
+
+    def timed(path, fn):
+        torch.cuda.synchronize()
+        dist.barrier()
+        zero_counts()
+        shapes["path"] = path
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        out["seconds"][path] = time.perf_counter() - t0
+        out["launches"][path] = read_counts()
+        shapes["path"] = None
+        return res
+
+    # one guided network call (joint CFG with rescale) on this rank's 4
+    # views, the whole scene's noisy latents drawn alike on both ranks
+    mv = pipe.mvldm
+    sigma = mv._ladder(STEPS, 8, "euler", dev)[0]
+    x = sigma * torch.randn((1, 8, 8, 32, 32), generator=seeded(),
+                            device=dev)
+    temb = pipe.encode_text([PROMPT])
+    uemb = pipe.encode_text([""]).expand(temb.shape).contiguous()
+    broadcast_([temb, uemb], group)
+    pose, upose = mv._pose_embeddings(cams, 32, 32)
+
+    def guided(g, views, kind):
+        n = views.stop - views.start
+        scale, rescale = (7.5, 0.7) if kind == "joint" else (1.0, 0.0)
+        with torch.no_grad():
+            return mv._guided_output(
+                x[:, views], sigma, temb, uemb, pose[:, views],
+                upose[:, views], kind, scale, rescale,
+                text_kv=mv._text_kv_for_guidance(temb, uemb, kind, n),
+                view_group=g)
+
+    # the (batch, Tk, heads, head dim) of every call the ranks make with
+    # K/V gathered; the unsharded reference takes the plain attention at
+    # the calls of those shapes
+    use_flash, joint = attention.use_flash, set()
+
+    def noting(q, k):
+        if q.shape[1] != k.shape[1]:
+            joint.add((q.shape[0], k.shape[1], q.shape[2], q.shape[3]))
+        return use_flash(q, k)
+
+    def plain_at_joint(q, k):
+        return ((q.shape[0], k.shape[1], q.shape[2], q.shape[3]) not in joint
+                and use_flash(q, k))
+
+    def patched(fn, **swaps):
+        """``fn()`` with module attributes swapped (``"module.name"`` ->
+        value), restored after."""
+        mods = {"unet_mv": unet_mv, "dit": dit, "ray_dit": ray_dit,
+                "attention": attention}
+        saved = {k: getattr(mods[k.split(".")[0]], k.split(".")[1])
+                 for k in swaps}
+        for k, v in swaps.items():
+            setattr(mods[k.split(".")[0]], k.split(".")[1], v)
+        try:
+            return fn()
+        finally:
+            for k, v in saved.items():
+                setattr(mods[k.split(".")[0]], k.split(".")[1], v)
+
+    def no_gather(x, group, dim=1):
+        return x
+
+    drop_gather = {"unet_mv.gather_tokens": no_gather,
+                   "dit.gather_tokens": no_gather}
+    mine = slice(4 * rank, 4 * rank + 4)
+    calls = patched(lambda: {
+        kind: all_gather_cat(guided(group, mine, kind), 1, group)
+        for kind in ("none", "joint")}, **{"attention.use_flash": noting})
+    res = patched(lambda: timed("dist2_generate", lambda: pipe.generate(
+        PROMPT, generator=seeded(), view_shard_group=group, **gen_kw)),
+        **{"attention.use_flash": noting})
+    faults = {
+        "U-Net call, K/V gather dropped": patched(
+            lambda: all_gather_cat(guided(group, mine, "none"), 1, group),
+            **drop_gather),
+        "guided call, K/V gather dropped": patched(
+            lambda: all_gather_cat(guided(group, mine, "joint"), 1, group),
+            **drop_gather),
+        "generate, K/V gather dropped": patched(lambda: pipe.generate(
+            PROMPT, generator=seeded(), view_shard_group=group, **gen_kw),
+            **drop_gather),
+        "generate, view offset zeroed": patched(lambda: pipe.generate(
+            PROMPT, generator=seeded(), view_shard_group=group, **gen_kw),
+            **{"ray_dit.get_rank": lambda group=None: 0})}
+    cams512 = cams.clone()
+    cams512[..., 12:18] *= 512.0 / cams512[..., 16:17]
+    scene = make_trained_stats_scene(
+        cams512, torch.Generator(device=dev).manual_seed(5),
+        n_gaussians=524288)
+    composite_grad.run_compositor_kernel = run_held
+    try:
+        tile = timed("dist2_tile_render",
+                     lambda: render_gaussians_tile_sharded(
+                         group, cams512, scene, h=512, w=512))
+    finally:
+        composite_grad.run_compositor_kernel = run_kernel
+    thr = timed("dist2_serve_throughput", lambda: serve.generate_batch(
+        pipe, prompts, seeded(), group=group, **mk))
+    out["shapes"] = {k: {s: sorted(p) for s, p in shapes[k].items()}
+                     for k in ("fwd", "bwd")}
+    dist.barrier()
+    if rank == 0:
+        data, counts, grid_w, tpv = held.pop("args")
+        out["band_b"] = check_composite_fwd(
+            "the tile-sharded render's band of rank 0 over 2 ranks: 8 views "
+            "x 256 of 512 rows", data, counts, grid_w, tpv)
+        del data, counts
+        plain = pipe.generate(PROMPT, generator=seeded(), **gen_kw)
+        split = patched(lambda: dict(
+            none=guided(None, slice(0, 8), "none"),
+            joint=guided(None, slice(0, 8), "joint"),
+            generate=pipe.generate(PROMPT, generator=seeded(), **gen_kw)),
+            **{"attention.use_flash": plain_at_joint})
+        none_ref = guided(None, slice(0, 8), "none")
+        guided_ref = guided(None, slice(0, 8), "joint")
+        out["joint_sites"] = sorted(joint)
+        out["checks"] = {
+            "network_call": hold_checks(
+                "one U-Net call (the conditional row), 4 + 4 views over "
+                "gloo", [("output", calls["none"], none_ref)], DIST_TOL),
+            "network_call_plain_joint": hold_checks(
+                "one U-Net call (the conditional row), 4 + 4 views over "
+                "gloo, against one process with the plain attention at "
+                "the joint sites", [("output", calls["none"],
+                                     split["none"])], DIST_TOL),
+            "guided_call": hold_checks(
+                "one guided U-Net call (joint CFG 7.5, rescale 0.7), 4 + 4 "
+                "views over gloo", [("guided output", calls["joint"],
+                                     guided_ref)], DIST_GUIDED_TOL),
+            "guided_call_plain_joint": hold_checks(
+                "one guided U-Net call (joint CFG 7.5, rescale 0.7), 4 + 4 "
+                "views over gloo, against one process with the plain "
+                "attention at the joint sites",
+                [("guided output", calls["joint"], split["joint"])],
+                DIST_GUIDED_TOL),
+            "generate": hold_checks(
+                f"view-sharded generate ({STEPS} steps), 2 ranks over gloo "
+                "on one card", result_pairs(res, plain, GEN_KEYS),
+                DIST_E2E_TOL, held="mean"),
+            "generate_plain_joint": hold_checks(
+                f"view-sharded generate ({STEPS} steps), 2 ranks over gloo "
+                "on one card, against one process with the plain attention "
+                "at the joint sites",
+                result_pairs(res, split["generate"], GEN_KEYS),
+                DIST_E2E_TOL, held="mean"),
+            "tile_render": hold_checks(
+                "tile-sharded render 512^2 of the trained-statistics scene, "
+                "2 bands over gloo",
+                list(zip(("images", "depths", "masks"), tile,
+                         render_gaussians(cams512, scene, h=512, w=512))),
+                DIST_TOL)}
+        out["faults"] = {}
+        for name, got in faults.items():
+            if name.startswith("U-Net"):
+                refs = (("", none_ref, DIST_TOL, None),
+                        (", against the plain attention at the joint sites",
+                         split["none"], DIST_TOL, None))
+                pairs = lambda r: [("output", got, r)]  # noqa: E731
+            elif name.startswith("guided"):
+                refs = (("", guided_ref, DIST_GUIDED_TOL, None),
+                        (", against the plain attention at the joint sites",
+                         split["joint"], DIST_GUIDED_TOL, None))
+                pairs = lambda r: [("guided output", got, r)]  # noqa: E731
+            else:
+                refs = (("", plain, DIST_E2E_TOL, "mean"),
+                        (", against the plain attention at the joint sites",
+                         split["generate"], DIST_E2E_TOL, "mean"))
+                pairs = lambda r: result_pairs(got, r, GEN_KEYS)  # noqa
+            for suffix, r, tol, how in refs:
+                out["faults"][name + suffix] = must_fail(
+                    f"planted fault: {name}{suffix}", pairs(r), tol, how)
+        del plain, split, faults
+        ref = serve.generate_batch(pipe, prompts, seeded(), **mk)
+        out["checks"]["serve_throughput"] = hold_checks(
+            "serve throughput mode, 2 prompts over 2 ranks over gloo",
+            result_pairs(thr, ref, SERVE_KEYS), DIST_E2E_TOL, held="mean")
+    held.clear()
+    dist.barrier()
+    return out
+
+
+def phase_dist_2rank(card: str, shapes: dict) -> dict:
+    """Phase (b): ``dist2_rank`` on 2 processes sharing the card over
+    ``gloo`` (``spawn_local``; ``PYTHONHASHSEED`` fixed for both, so the
+    fallback tokenizer gives them the same ids). Prints which collectives
+    ``gloo`` carried on CUDA tensors, each check, the launches and seconds
+    of each rank's paths; adds the shapes A met to ``shapes``."""
+    from prometheus_torch.parallel.dist import spawn_local
+
+    saved = os.environ.get("PYTHONHASHSEED")
+    os.environ["PYTHONHASHSEED"] = "0"
+    t0 = time.perf_counter()
+    try:
+        outs = spawn_local(dist2_rank, 2, "gloo", args=(SEED,),
+                           threads=None)
+    finally:
+        if saved is None:
+            os.environ.pop("PYTHONHASHSEED")
+        else:
+            os.environ["PYTHONHASHSEED"] = saved
+    wall = time.perf_counter() - t0
+    for rank, o in enumerate(outs):
+        for path, counts in o["launches"].items():
+            need = ("composite_fwd",) if "tile" in path else (
+                "flash_attn_fwd", "composite_fwd")
+            for name in need:
+                if counts[name] <= 0:
+                    raise RuntimeError(f"rank {rank} {path}: {name} was not "
+                                       "launched")
+        for kind in ("fwd", "bwd"):
+            for s, paths in o["shapes"][kind].items():
+                shapes[kind].setdefault(s, set()).update(
+                    f"{p} rank {rank}" for p in paths)
+        log(f"dist_2rank rank {rank}: collectives gloo carried on CUDA "
+            f"tensors {o['collectives']}; seconds by path "
+            + ", ".join(f"{k} {v:.3f}" for k, v in o["seconds"].items())
+            + "; launches " + "; ".join(f"{k} {v}" for k, v in
+                                         o["launches"].items()))
+    log(f"phase dist_2rank (2 processes on one card over gloo) on {card}: "
+        f"{wall:.1f} s")
+    return dict(ranks=outs, seconds=wall)
+
+
 def main() -> int:
     import gc
 
@@ -3092,8 +3811,11 @@ def main() -> int:
     serving_http = phase_serve_http(pipe, card, shapes)
     bundle = phase_checkpoint_bundle(pipe, card)
     layout = phase_full_ckpt_layout(pipe, card)
+    dist_inference = phase_dist_inference(pipe, kw, card, shapes)
     del pipe
+    gc.collect()
     torch.cuda.empty_cache()
+    dist_2rank = phase_dist_2rank(card, shapes)
     entry_a["on_new_shapes"], entry_abwd["on_new_shapes"] = \
         phase_new_attention_shapes(shapes)
     phase_scene_checks(traj_result, entry_b, entry_c, binning)
@@ -3135,6 +3857,7 @@ def main() -> int:
         "gradients", *c_args)
     del c_args, data, counts
     torch.cuda.empty_cache()
+    dist_train = phase_dist_train(card, shapes)
     fwd_rows, bwd_rows = phase_new_attention_shapes(
         shapes, (entry_a["on_new_shapes"], entry_abwd["on_new_shapes"]),
         seed=8)
@@ -3172,7 +3895,13 @@ def main() -> int:
              "serve": serving["launches"],
              "serve_http": serving_http["launches"],
              "val_snapshot": {k: sum(c[k] for c in snapshots)
-                              for k in snapshots[0]}}
+                              for k in snapshots[0]},
+             **dist_inference["launches"],
+             **{f"{p}_step": dist_train[p]["launches"]
+                for p in ("dp", "fsdp", "sp_views")},
+             **{f"{p} rank {r}": c
+                for r, o in enumerate(dist_2rank["ranks"])
+                for p, c in o["launches"].items()}}
     for entry, launches in ((entry_a, traj_launches),
                             (entry_b, traj_launches),
                             (entry_abwd, train_launches),
@@ -3192,6 +3921,7 @@ def main() -> int:
     entry_b["on_serve_batch"] = {bs: r["composite_fwd"]
                                  for bs, r in serving["batches"].items()
                                  if "scenes" in r}
+    entry_b["on_tile_band"] = dist_2rank["ranks"][0]["band_b"]
     log("csort_pairs_dropped: generate " + str(
         gen_dropped["csort_pairs_dropped"]) + ", train step "
         + str(train_dropped["csort_pairs_dropped"]) + ", stage-2 render-loss "
@@ -3206,7 +3936,7 @@ def main() -> int:
              "on_refine_iteration", "on_new_shapes",
              "on_train_mvldm_render_loss", "on_serve_batch",
              "launches_per_refine_iteration", "launches_per_orbit_video",
-             "launches_per_serve_batch",
+             "launches_per_serve_batch", "on_tile_band",
              "psnr_vs_exact_db")
     entries = (entry_a, entry_b, entry_abwd, entry_c)
     kernels = [{k: e[k] for k in keys + extra if k in e} for e in entries]
@@ -3221,6 +3951,11 @@ def main() -> int:
     (LOG_DIR / "cli.json").write_text(json.dumps(cli, indent=1))
     (LOG_DIR / "image_to_3d_eval.json").write_text(json.dumps(dict(
         image_to_3d=image_to_3d, eval=evaluation), indent=1, default=str))
+    (LOG_DIR / "dist.json").write_text(json.dumps(dict(
+        dist_nccl=dict(inference=dist_inference, training=dist_train),
+        dist_2rank=dict(dist_2rank, ranks=[
+            {k: v for k, v in o.items() if k != "shapes"}   # tuple keys
+            for o in dist_2rank["ranks"]])), indent=1, default=str))
     (LOG_DIR / "serve_checkpoint.json").write_text(json.dumps(dict(
         serve=serving, serve_http=serving_http, bundle=bundle,
         full_ckpt_layout=layout, final_ckpt=final_ckpt), indent=1,

@@ -7,7 +7,12 @@ magnitudes among them), the optimizer's state dict (a bf16 first moment
 stays bf16), the EMA and the module's widths (``init_kwargs``), and keeps
 the newest ``keep`` checkpoints. A checkpoint is written under a
 temporary name and renamed, so a cut run never leaves a partial
-``step_*`` directory.
+``step_*`` directory. Over a process group every rank calls both: the
+file is the same whole, unsharded one whatever the sharding (under
+``--param_sharding fsdp`` the optimizer's moments and the EMA are gathered
+first), rank 0 alone writes it, and ``restore_checkpoint`` reads it on
+every rank and keeps each rank's slices, so a checkpoint moves between any
+number of ranks.
 
 ``load_torch_state_dict`` reads a foreign torch checkpoint (a published
 network's weights) into a flat dict of tensors.
@@ -33,6 +38,7 @@ import numpy as np
 import torch
 
 from .parallel import full_ema_params
+from .parallel.dist import barrier, is_main_process
 
 STATE_FILE = "state.pt"
 
@@ -52,24 +58,44 @@ def latest_checkpoint(ckpt_dir: str) -> str | None:
             else None)
 
 
+def _optimizer_state(state, convert) -> dict:
+    """The optimizer's state dict with ``convert(name, tensor)`` applied
+    to the moments of each sharded parameter (the optimizer holds
+    ``state.sharding.shards`` in their order)."""
+    sd = state.optimizer.state_dict()
+    sharding = state.sharding
+    if sharding is None:
+        return sd
+    names = list(sharding.shards)
+    sd["state"] = {i: {k: convert(names[i], v)
+                       if k in ("exp_avg", "exp_avg_sq") else v
+                       for k, v in st.items()}
+                   for i, st in sd["state"].items()}
+    return sd
+
+
 def save_checkpoint(ckpt_dir: str, state, step: int, keep: int = 3) -> str:
     """Write ``state`` (a ``TrainState``) as ``step_{step:09d}``; returns
-    its path."""
+    its path. Every rank calls it; rank 0 writes."""
     path = os.path.join(ckpt_dir, f"step_{step:09d}")
-    tmp = path + ".tmp"
-    shutil.rmtree(tmp, ignore_errors=True)
-    os.makedirs(tmp)
-    torch.save({"step": state.step, "model": state.model.state_dict(),
-                "optimizer": state.optimizer.state_dict(),
-                "ema": state.ema_params,
-                "widths": getattr(state.model, "init_kwargs", None)},
-               os.path.join(tmp, STATE_FILE))
-    shutil.rmtree(path, ignore_errors=True)
-    os.replace(tmp, path)
-    if keep > 0:
-        for s in list_checkpoints(ckpt_dir)[:-keep]:
-            shutil.rmtree(os.path.join(ckpt_dir, f"step_{s:09d}"),
-                          ignore_errors=True)
+    gather = state.sharding.gather if state.sharding is not None else None
+    optimizer = _optimizer_state(state, gather)
+    ema = state.full_ema()
+    if is_main_process():
+        tmp = path + ".tmp"
+        shutil.rmtree(tmp, ignore_errors=True)
+        os.makedirs(tmp)
+        torch.save({"step": state.step, "model": state.model.state_dict(),
+                    "optimizer": optimizer, "ema": ema,
+                    "widths": getattr(state.model, "init_kwargs", None)},
+                   os.path.join(tmp, STATE_FILE))
+        shutil.rmtree(path, ignore_errors=True)
+        os.replace(tmp, path)
+        if keep > 0:
+            for s in list_checkpoints(ckpt_dir)[:-keep]:
+                shutil.rmtree(os.path.join(ckpt_dir, f"step_{s:09d}"),
+                              ignore_errors=True)
+    barrier()
     return path
 
 
@@ -83,10 +109,20 @@ def restore_checkpoint(path: str, state=None):
     if state is None:
         return raw
     state.model.load_state_dict(raw["model"])
+    sharding = state.sharding
+    local = ((lambda n, v: sharding.local(n, v).clone())
+             if sharding is not None else (lambda n, v: v))
+    if sharding is not None:
+        sharding.reload()
+        names = list(sharding.shards)
+        raw["optimizer"]["state"] = {
+            i: {k: local(names[i], v) if k in ("exp_avg", "exp_avg_sq")
+                else v for k, v in st.items()}
+            for i, st in raw["optimizer"]["state"].items()}
     state.optimizer.load_state_dict(raw["optimizer"])
     with torch.no_grad():
         for name, value in raw["ema"].items():
-            state.ema_params[name].copy_(value)
+            state.ema_params[name].copy_(local(name, value))
     state.step = int(raw["step"])
     return state
 

@@ -29,8 +29,15 @@ create_final_ckpt``), a file the reference's published ``full.ckpt``;
 without it, or where the path does not exist, the weights are random
 (``pipeline.build_pipeline``, seed 0), as in the JAX CLI. ``--ref_image``'s
 image tower and depth teacher stay random (``pipeline.
-attach_image_to_3d``). ``--shard_views`` is not ported: argparse refuses
-it.
+attach_image_to_3d``).
+
+``--shard_views`` under ``torchrun`` (``torchrun --nproc_per_node=N -m
+prometheus_torch.inference --shard_views ...``; ``nccl``, each rank on
+``cuda:$LOCAL_RANK``, or ``gloo`` with ``--device cpu``) splits each
+scene's views over the ranks: the sampler and the decode and render run
+view-sharded (``generate(view_shard_group=...)``) and the orbit video's
+frames are split too; rank 0 writes the files. ``--num_views`` must be a
+multiple of the world size. A process alone runs the unsharded path.
 
 Seeds: sample ``j`` of prompt ``i`` draws its trajectory, sampler and
 refiner noise from a ``torch.Generator`` seeded from ``(seed + i, j)``, the
@@ -50,10 +57,13 @@ import time
 import numpy as np
 import torch
 
+import torch.distributed as dist
+
 from .checkpoint import bundle_widths
 from .datasets.transforms import (center_crop_and_resize, decode_image,
                                   normalize_image)
 from .models import CLIPTokenizer
+from .parallel.dist import init_from_env, is_main_process
 from .pipeline import (attach_image_to_3d, build_pipeline,
                        load_checkpoint)
 from .utils import get_random_cameras, resolve_device
@@ -108,6 +118,9 @@ def parse_args(argv=None) -> argparse.Namespace:
                    help="CLIP BPE merges file (exact tokenization)")
     p.add_argument("--device", type=str, default="cuda",
                    help="'cuda' (default) or 'cpu'")
+    p.add_argument("--shard_views", action="store_true",
+                   help="under torchrun: split each scene's views (and the "
+                        "video's frames) over the ranks")
     return p.parse_args(argv)
 
 
@@ -119,8 +132,10 @@ def sample_generator(seed: int, j: int,
 
 
 def export_result(result: dict, pipe, prompt: str, out_dir: str,
-                  args) -> tuple[dict, dict]:
-    """Write one scene's files; returns ``(paths, seconds per step)``."""
+                  args, frames: torch.Tensor | None = None
+                  ) -> tuple[dict, dict]:
+    """Write one scene's files; returns ``(paths, seconds per step)``.
+    ``frames``: the orbit video, already rendered (else rendered here)."""
     os.makedirs(out_dir, exist_ok=True)
     paths, seconds = {}, {}
     t0 = time.perf_counter()
@@ -151,9 +166,10 @@ def export_result(result: dict, pipe, prompt: str, out_dir: str,
 
     if not args.no_video:
         t0 = time.perf_counter()
-        frames = pipe.render_orbit_video(
-            result["gaussians"], result["dense_cameras"],
-            num_frames=args.num_video_frames, size=args.render_size)
+        if frames is None:
+            frames = pipe.render_orbit_video(
+                result["gaussians"], result["dense_cameras"],
+                num_frames=args.num_video_frames, size=args.render_size)
         seconds["video_render"] = time.perf_counter() - t0
         t0 = time.perf_counter()
         paths["video"] = save_video(postprocess_image(frames.numpy()),
@@ -213,12 +229,13 @@ def run_image_to_3d(args, pipe) -> dict:
                 result=result)
 
 
-def pipeline_from_args(args):
+def pipeline_from_args(args, device: torch.device | None = None):
     """The pipeline of ``--small`` / ``--device`` (bf16 on the card, float32
-    on the CPU) with ``--ckpt``'s weights loaded, or random ones (the JAX
-    CLI's ``build_pipeline``). A bundle directory's towers are built at the
+    on the CPU; ``device`` in its place, a rank's own card) with
+    ``--ckpt``'s weights loaded, or random ones (the JAX CLI's
+    ``build_pipeline``). A bundle directory's towers are built at the
     widths the bundle records, whatever ``--small`` says."""
-    device = resolve_device(args.device)
+    device = resolve_device(device or args.device)
     dtype = torch.bfloat16 if device.type == "cuda" else torch.float32
     widths = (bundle_widths(args.ckpt) if args.ckpt
               and os.path.isdir(args.ckpt) else None)
@@ -234,13 +251,18 @@ def run(args, pipe=None) -> list[dict]:
     are used as they are), else one is built from ``args``. Returns one
     record per scene: its directory, files, ``generate``'s stage seconds,
     the export seconds and the wall seconds of ``generate`` (the
-    image-to-3D record, first, also holds its ``result``)."""
+    image-to-3D record, first, also holds its ``result``). With
+    ``--shard_views`` over a process group (``torchrun``) every rank runs
+    it and rank 0 alone writes the files."""
     prompts = prompts_of(args)
+    group, device = view_shard_group(args)
+    main = is_main_process()
     if pipe is None:
-        pipe = pipeline_from_args(args)
+        pipe = pipeline_from_args(args, device)
     if args.bpe_vocab:
         pipe.tokenizer = CLIPTokenizer(args.bpe_vocab)
-    records = [run_image_to_3d(args, pipe)] if args.ref_image else []
+    records = ([run_image_to_3d(args, pipe)] if args.ref_image and main
+               else [])
     refiner = None
     if args.refine and prompts:
         refiner = pipe.build_refiner(args.refine,
@@ -262,15 +284,23 @@ def run(args, pipe=None) -> list[dict]:
                 negative_text=args.negative_prompt, sampler=args.sampler,
                 cfg_interval_frac=args.cfg_interval_frac,
                 use_3d_mode_every_m_steps=args.use_3d_mode_every_m_steps,
-                refiner=refiner)
+                refiner=refiner, view_shard_group=group)
             dt = time.perf_counter() - t0
             slug = "".join(c if c.isalnum() else "_"
                            for c in prompt[:48]).strip("_")
             out_dir = os.path.join(args.export_dir, f"{i:03d}_{slug}")
             if args.num_samples > 1:
                 out_dir = os.path.join(out_dir, str(j))
+            frames = None
+            if group is not None and not args.no_video:
+                frames = pipe.render_orbit_video(
+                    result["gaussians"], result["dense_cameras"],
+                    num_frames=args.num_video_frames, size=args.render_size,
+                    group=group)
+            if not main:
+                continue
             paths, seconds = export_result(result, pipe, prompt, out_dir,
-                                           args)
+                                           args, frames)
             n = int(result["gaussians"][0].shape[1])
             stages = " ".join(f"{k} {v:.3f}"
                               for k, v in result["timings"].items())
@@ -283,8 +313,28 @@ def run(args, pipe=None) -> list[dict]:
     return records
 
 
+def view_shard_group(args) -> tuple:
+    """``--shard_views``: join the ranks ``torchrun`` started and return
+    the world's group and this rank's device; ``(None, None)`` without the
+    flag or for a process alone."""
+    if not args.shard_views:
+        return None, None
+    env = init_from_env(args.device)
+    if env.backend is None:
+        return None, env.device
+    if args.num_views % env.world:
+        raise SystemExit(f"--shard_views needs num_views ({args.num_views}) "
+                         f"divisible by the world size ({env.world})")
+    return dist.group.WORLD, env.device
+
+
 def main(argv=None) -> None:
-    run(parse_args(argv))
+    joined = dist.is_initialized()
+    try:
+        run(parse_args(argv))
+    finally:
+        if dist.is_initialized() and not joined:
+            dist.destroy_process_group()
 
 
 if __name__ == "__main__":

@@ -10,6 +10,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.attention import scaled_dot_product_attention
+from ..parallel.dist import gather_tokens
 from .layers import timestep_embedding
 
 
@@ -50,10 +51,15 @@ class MultiHeadSelfAttention(nn.Module):
         self.qkv = nn.Linear(hidden, 3 * hidden, bias=qkv_bias)
         self.proj = nn.Linear(hidden, hidden)
 
-    def forward(self, x):
+    def forward(self, x, gather_group=None):
+        """``gather_group``: K and V of every rank's tokens are gathered
+        along the token axis in rank order (view-sharded decoding)."""
         b, t, c = x.shape
         d = c // self.num_heads
         q, k, v = self.qkv(x).reshape(b, t, 3, self.num_heads, d).unbind(2)
+        if gather_group is not None:
+            k = gather_tokens(k, gather_group)
+            v = gather_tokens(v, gather_group)
         out = scaled_dot_product_attention(q, k, v)
         return self.proj(out.reshape(b, t, c))
 
@@ -99,10 +105,11 @@ class DiTBlock(nn.Module):
         self.attn = MultiHeadSelfAttention(hidden, num_heads)
         self.mlp = Mlp(hidden, int(hidden * mlp_ratio))
 
-    def forward(self, x, c):
+    def forward(self, x, c, gather_group=None):
         sh_a, sc_a, g_a, sh_m, sc_m, g_m = self.adaLN_modulation(
             F.silu(c)).chunk(6, dim=-1)
-        x = x + g_a[:, None, :] * self.attn(modulate(_norm(x), sh_a, sc_a))
+        x = x + g_a[:, None, :] * self.attn(modulate(_norm(x), sh_a, sc_a),
+                                            gather_group)
         return x + g_m[:, None, :] * self.mlp(modulate(_norm(x), sh_m, sc_m))
 
 

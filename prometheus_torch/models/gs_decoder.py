@@ -47,13 +47,15 @@ class GSDecoderModel(nn.Module):
         z = z * VAE_SCALE
         return z.reshape((B, N) + z.shape[1:])
 
-    def decode_latent(self, latents: torch.Tensor,
-                      train: bool = False) -> torch.Tensor:
+    def decode_latent(self, latents: torch.Tensor, train: bool = False,
+                      view_group=None) -> torch.Tensor:
         """``(B, N, 14, h, w)`` ([rgb latent 4, depth latent 4, raymap 6])
         -> raw gaussian parameters ``(B, N, 14, 8h, 8w)``; ``train`` updates
-        the EMANorms."""
+        the EMANorms. ``view_group``: the N views are this rank's share of
+        the scene's views (``CrossViewDiT``'s view sharding)."""
         B, N, C, h, w = latents.shape
-        refined = self.cross_view_dit(latents, t=1000.0)
+        refined = self.cross_view_dit(latents, t=1000.0,
+                                      view_group=view_group)
         x = torch.cat([latents.to(refined.dtype), refined], dim=2)
         x = x.reshape(B * N, 2 * C, h, w)
         lc = self.latent_channel

@@ -84,10 +84,13 @@ class MVLDMModel(nn.Module):
     def denoise(self, latents_noisy: torch.Tensor, text_embeddings: torch.Tensor,
                 t: torch.Tensor, cameras: torch.Tensor | None = None,
                 num_views: int | None = None,
-                text_kv: dict | None = None) -> torch.Tensor:
+                text_kv: dict | None = None,
+                view_group=None) -> torch.Tensor:
         """``latents_noisy (B, N, C, h, w)``, ``text_embeddings (B, L, D)``,
         ``t (B, N)`` noise conditioning, ``cameras (B, N, 18)`` -> the
-        prediction for the first 8 channels ``(B, N, 8, h, w)``."""
+        prediction for the first 8 channels ``(B, N, 8, h, w)``.
+        ``view_group``: the N views are this rank's share of the scene's
+        views, and the U-Net's joint sites span the group."""
         B, N, _, h, w = latents_noisy.shape
         x = latents_noisy
         if cameras is not None:
@@ -98,5 +101,5 @@ class MVLDMModel(nn.Module):
         ctx = ctx.reshape((B * N,) + text_embeddings.shape[1:])
         out = self.unet(x.reshape((B * N, -1, h, w)), t.reshape(B * N), ctx,
                         num_frames=num_views if num_views is not None else N,
-                        text_kv=text_kv)
+                        text_kv=text_kv, view_group=view_group)
         return out.reshape(B, N, -1, h, w)[:, :, :8]

@@ -3,7 +3,10 @@
 
 Tokens of all N views are flattened into one joint attention sequence of
 ``N * width^2`` tokens (2048 at flagship width: 8 views of 16x16), after
-per-view and per-patch sinusoid tables (bases 10000 / 70007) are added. The
+per-view and per-patch sinusoid tables (bases 10000 / 70007) are added.
+With a ``view_group`` the N views are this rank's share (global views
+``[rank * N, (rank + 1) * N)``, whose rows of the view table it adds), and
+every block gathers K and V of every rank's tokens. The
 GS decoder wraps it in a stride-2 ``conv_in`` (14 -> 392) and a 2x-upsample
 ``conv_out`` (392 -> 14).
 """
@@ -12,6 +15,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from ..parallel.dist import get_rank
 from .dit import DiTBlock, FinalLayer, TimestepEmbedder, sinusoid_table
 from .layers import StridedDownsampleConv, UpsampleConv
 
@@ -38,15 +42,16 @@ class CrossViewDiT(nn.Module):
         self.final_layer = FinalLayer(
             hidden_size, patch_size * patch_size * out_channels)
 
-    def forward(self, x: torch.Tensor, t) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, t, view_group=None) -> torch.Tensor:
         B, N, C, H, W = x.shape
         P = self.patch_size
         h, w = H // P, W // P
         dtype = self.x_embedder.weight.dtype
         xe = self.x_embedder(x.reshape(B * N, C, H, W).to(dtype))
         tokens = xe.flatten(2).transpose(1, 2).reshape(B, N, h * w, -1)
+        start = 0 if view_group is None else get_rank(view_group) * N
         view_pe = torch.from_numpy(sinusoid_table(
-            self.max_num_images, self.hidden_size, 10000.0)[:N])
+            self.max_num_images, self.hidden_size, 10000.0)[start:start + N])
         patch_pe = torch.from_numpy(sinusoid_table(
             h * w, self.hidden_size, 70007.0))
         pe = (view_pe[None, :, None, :] + patch_pe[None, None, :, :]).to(
@@ -56,7 +61,7 @@ class CrossViewDiT(nn.Module):
                             device=x.device).expand(B)
         c = self.t_embedder(t)
         for i in range(self.depth):
-            tokens = getattr(self, f"block_{i}")(tokens, c)
+            tokens = getattr(self, f"block_{i}")(tokens, c, view_group)
         out = self.final_layer(tokens, c)
         out = out.reshape(B * N, h, w, P, P, self.out_channels)
         out = out.permute(0, 5, 1, 3, 2, 4).reshape(B, N, self.out_channels,
@@ -78,10 +83,12 @@ class CrossViewDiTWrapped(nn.Module):
                                 num_heads, max_num_images=max_num_images)
         self.conv_out = UpsampleConv(dit_channels, latent_channels)
 
-    def forward(self, latents: torch.Tensor, t=1000.0) -> torch.Tensor:
+    def forward(self, latents: torch.Tensor, t=1000.0,
+                view_group=None) -> torch.Tensor:
         B, N, C, H, W = latents.shape
         dtype = self.conv_in.conv.weight.dtype
         x = self.conv_in(latents.reshape(B * N, C, H, W).to(dtype))
-        x = self.dit(x.reshape(B, N, self.dit_channels, H // 2, W // 2), t)
+        x = self.dit(x.reshape(B, N, self.dit_channels, H // 2, W // 2), t,
+                     view_group)
         x = self.conv_out(x.reshape(B * N, self.dit_channels, H // 2, W // 2))
         return x.reshape(B, N, -1, H, W)

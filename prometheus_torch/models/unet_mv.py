@@ -6,7 +6,12 @@ per level, spatial transformers (depth 1, linear proj, GEGLU ff, head dim
 64, text context 1024) at downsample factors 1/2/4, time embed 320 -> 1280.
 Inside self-attention the per-view token grids of all ``num_frames`` views
 are flattened into one sequence so the views attend jointly; text
-cross-attention stays per view. ``disable_3d_attentions`` (16 sites: 6
+cross-attention stays per view. With a ``view_group`` (view-sharded
+sampling and training, ``prometheus_tpu``'s ``view_axis``) ``num_frames``
+counts this rank's views, and the joint sites gather K and V of every
+rank's views along the token axis in rank order (``parallel.dist.
+gather_tokens``); the sites ``disable_3d_attentions`` keeps 2-D stay
+local. ``disable_3d_attentions`` (16 sites: 6
 encoder, 1 middle, 9 decoder) keeps the highest-resolution sites 2-D.
 Input and output NCHW ``(B*F, C, H, W)``.
 
@@ -27,6 +32,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ..ops.attention import scaled_dot_product_attention
+from ..parallel.dist import gather_tokens
 from .layers import GroupNorm32, conv3x3, timestep_embedding, upsample2x
 
 
@@ -67,6 +73,9 @@ class CrossAttention(nn.Module):
     ``kv``: precomputed ``(k, v)`` projections of the context (each
     ``(B, Tk, inner)``); the sampler computes the constant text K/V once per
     sample (``precompute_text_kv``) and ``to_k``/``to_v`` are skipped.
+    ``gather_group``: K and V of every rank are gathered along the token
+    axis (``Tk`` then exceeds ``Tq`` and the plain attention path runs, as
+    JAX's XLA path does at ``Tq != Tk``).
     """
 
     def __init__(self, query_dim: int, heads: int, dim_head: int,
@@ -80,7 +89,7 @@ class CrossAttention(nn.Module):
         self.to_v = nn.Linear(context_dim, inner, bias=False)
         self.to_out = nn.Linear(inner, query_dim)
 
-    def forward(self, x, context=None, kv=None):
+    def forward(self, x, context=None, kv=None, gather_group=None):
         b, tq, _ = x.shape
         q = self.to_q(x)
         if kv is not None:
@@ -88,6 +97,9 @@ class CrossAttention(nn.Module):
         else:
             ctx = x if context is None else context
             k, v = self.to_k(ctx), self.to_v(ctx)
+        if gather_group is not None:
+            k = gather_tokens(k, gather_group)
+            v = gather_tokens(v, gather_group)
         tk = k.shape[1]
         out = scaled_dot_product_attention(
             q.reshape(b, tq, self.heads, self.dim_head),
@@ -107,8 +119,9 @@ class GEGLU(nn.Module):
 
 
 class BasicTransformerBlock3D(nn.Module):
-    """Self-attention (joint over ``num_frames`` views) -> text
-    cross-attention -> GEGLU feed-forward, each pre-LayerNorm."""
+    """Self-attention (joint over ``num_frames`` views, and over every
+    rank's views with a ``view_group``) -> text cross-attention -> GEGLU
+    feed-forward, each pre-LayerNorm."""
 
     def __init__(self, dim: int, heads: int, dim_head: int, context_dim: int):
         super().__init__()
@@ -120,12 +133,15 @@ class BasicTransformerBlock3D(nn.Module):
         self.ff_geglu = GEGLU(dim, 4 * dim)
         self.ff_out = nn.Linear(4 * dim, dim)
 
-    def forward(self, x, context, num_frames: int = 1, kv=None):
+    def forward(self, x, context, num_frames: int = 1, kv=None,
+                view_group=None):
         bf, l, c = x.shape
         h = self.norm1(x)
-        if num_frames > 1:   # (b f) l c -> b (f l) c: the views attend jointly
+        if num_frames > 1 or view_group is not None:
+            # (b f) l c -> b (f l) c: the views attend jointly
             b = bf // num_frames
-            h = self.attn1(h.reshape(b, num_frames * l, c)).reshape(bf, l, c)
+            h = self.attn1(h.reshape(b, num_frames * l, c),
+                           gather_group=view_group).reshape(bf, l, c)
         else:
             h = self.attn1(h)
         x = x + h
@@ -148,14 +164,17 @@ class SpatialTransformer3D(nn.Module):
                 inner, heads, dim_head, context_dim))
         self.proj_out = nn.Linear(inner, channels)
 
-    def forward(self, x, context, kv=None, num_frames: int = 1):
-        """``num_frames == 1`` is 2-D (per-view) self-attention."""
+    def forward(self, x, context, kv=None, num_frames: int = 1,
+                view_group=None):
+        """``num_frames == 1`` without ``view_group`` is 2-D (per-view)
+        self-attention."""
         bf, c, hh, ww = x.shape
         h = self.norm(x).flatten(2).transpose(1, 2)             # (BF, HW, C)
         h = self.proj_in(h)
         for i in range(self.depth):
             h = getattr(self, f"block_{i}")(
-                h, context, num_frames, kv[i] if kv is not None else None)
+                h, context, num_frames, kv[i] if kv is not None else None,
+                view_group)
         h = self.proj_out(h)
         return x + h.transpose(1, 2).reshape(bf, c, hh, ww)
 
@@ -281,10 +300,11 @@ class MultiViewUNet(nn.Module):
         self.conv_out = conv3x3(ch, out_channels)
 
     def forward(self, x, timesteps, context, num_frames: int = 1,
-                text_kv: dict | None = None):
+                text_kv: dict | None = None, view_group=None):
         """``x (B*F, C, H, W)``, ``timesteps (B*F,)``, ``context (B*F, L,
         ctx_dim)``; ``text_kv``: ``{site: ((k, v), ...)}`` from
-        ``precompute_text_kv``."""
+        ``precompute_text_kv``; ``view_group``: the F views are this rank's
+        share of a scene whose joint sites span the group."""
         dtype = self.conv_in.weight.dtype
         remat = (self.use_checkpoint and self.training
                  and torch.is_grad_enabled())
@@ -309,8 +329,10 @@ class MultiViewUNet(nn.Module):
                 h = run(getattr(self, name), h, emb)
             elif kind == "attn":
                 kv = text_kv.get(name) if text_kv is not None else None
+                is_3d = self.is_3d[name]
                 h = run(getattr(self, name), h, context, kv,
-                        num_frames if self.is_3d[name] else 1)
+                        num_frames if is_3d else 1,
+                        view_group if is_3d else None)
             else:                                   # down / up
                 h = getattr(self, name)(h)
         return self.conv_out(F.silu(self.out_norm(h)))

@@ -23,6 +23,22 @@ it, as optax does when the JAX step runs without a frozen mask. The EMA
 covers exactly the parameters the optimizer holds. Mutable model state (the
 EMANorm magnitudes) lives in the module's buffers and is updated in place
 by the loss, micro-batch after micro-batch.
+
+Over a process group (``make_train_step(group=...)``), each rank computes
+the gradients of its own batch and they are reduced with coalesced
+``all_reduce`` before the clip: averaged for data parallelism (``reduce=
+"mean"``; every rank's loss is the mean over equal local batches, so the
+average is the global batch's gradient), summed for view sharding
+(``reduce="sum"``: each rank's loss is its term over the global
+denominators). The metrics are reduced alike (``*_sum`` and ``*_cnt``
+summed). The model's floating buffers (the EMANorm magnitudes, which each
+rank moves on its own batch) are averaged after the step. ``ZeroShards``
+(``--param_sharding fsdp``, a hand-written ZeRO) splits the optimizer
+state and the EMA of each trained parameter of 2^16 elements or more on
+``fsdp_param_spec``'s dim over its group: the reduced gradient's local
+slice updates the local slice of the parameter, and the slices are
+gathered back into the whole parameter the networks compute with; smaller
+parameters stay replicated, updated alike on every rank.
 """
 from __future__ import annotations
 
@@ -33,6 +49,13 @@ import numpy as np
 import torch
 from torch import nn
 
+from .dist import (all_gather_cat, all_reduce_, fsdp_param_spec, get_rank,
+                   world_size)
+
+# parameters of at least this many elements are split under
+# --param_sharding fsdp (``fsdp_param_spec``'s threshold); smaller ones stay
+# replicated
+FSDP_MIN_SIZE = 2 ** 16
 # elements of fp32 temporaries one AdamW chunk may hold (256 MiB): the update
 # runs over groups of tensors so its transient memory stays bounded
 _CHUNK_ELEMS = 1 << 26
@@ -47,6 +70,62 @@ class TrainState:
     model: nn.Module
     optimizer: torch.optim.Optimizer
     ema_params: dict[str, torch.Tensor]
+    sharding: ZeroShards | None = None
+
+    def full_ema(self) -> dict[str, torch.Tensor]:
+        """The EMA of every tracked parameter, whole (gathered over the
+        sharding group: every rank of it must call)."""
+        if self.sharding is None:
+            return self.ema_params
+        return {n: self.sharding.gather(n, v)
+                for n, v in self.ema_params.items()}
+
+
+class ZeroShards:
+    """``--param_sharding fsdp`` over ``group`` (None: the world's): the
+    trained ``named`` parameters' split dims (``fsdp_param_spec`` at
+    ``FSDP_MIN_SIZE``), this rank's slices (``shards``: copies the
+    optimizer and the EMA hold; the parameter itself where it stays
+    whole), the gradients' slices before the update and the gathered
+    slices after it."""
+
+    def __init__(self, named: list, group=None):
+        self.group = group
+        self.world, self.rank = world_size(group), get_rank(group)
+        self.params = dict(named)
+        self.dims = {n: fsdp_param_spec(p.shape, self.world, FSDP_MIN_SIZE)
+                     for n, p in named}
+        self.shards = {n: p if self.dims[n] is None
+                       else self.local(n, p.detach()).clone()
+                       for n, p in named}
+
+    def local(self, name: str, full: torch.Tensor) -> torch.Tensor:
+        d = self.dims[name]
+        return full if d is None else full.chunk(self.world, d)[self.rank]
+
+    def gather(self, name: str, shard: torch.Tensor) -> torch.Tensor:
+        d = self.dims[name]
+        return shard if d is None else all_gather_cat(shard, d, self.group)
+
+    def sharded(self) -> list[str]:
+        return [n for n, d in self.dims.items() if d is not None]
+
+    def take_grads(self) -> None:
+        for n in self.sharded():
+            self.shards[n].grad = self.local(n, self.params[n].grad)
+
+    @torch.no_grad()
+    def put_params(self) -> None:
+        """Every rank's updated slices into the whole parameters."""
+        for n in self.sharded():
+            self.params[n].copy_(self.gather(n, self.shards[n]))
+            self.shards[n].grad = None
+
+    @torch.no_grad()
+    def reload(self) -> None:
+        """The slices from the whole parameters (after a restore)."""
+        for n in self.sharded():
+            self.shards[n].copy_(self.local(n, self.params[n]))
 
 
 def frozen_components(*components: str) -> Callable[[str], bool]:
@@ -166,10 +245,14 @@ def freeze_(model: nn.Module, frozen: Callable[[str], bool] | None) -> list:
     return trained
 
 
-def init_train_state(model: nn.Module,
-                     optimizer: torch.optim.Optimizer) -> TrainState:
+def init_train_state(model: nn.Module, optimizer: torch.optim.Optimizer,
+                     sharding: ZeroShards | None = None) -> TrainState:
     """Step 0 and an EMA copy of exactly the parameters ``optimizer``
-    holds."""
+    holds (with ``sharding``: of their slices)."""
+    if sharding is not None:
+        return TrainState(0, model, optimizer,
+                          {n: s.detach().clone()
+                           for n, s in sharding.shards.items()}, sharding)
     held = {id(p) for group in optimizer.param_groups for p in group["params"]}
     return TrainState(0, model, optimizer,
                       {n: p.detach().clone() for n, p in model.named_parameters()
@@ -202,17 +285,44 @@ def _micro_batches(batch: dict, n: int):
              for k, v in batch.items()} for i in range(n)]
 
 
+def reduce_metrics(metrics: dict, group, reduce: str) -> dict:
+    """The ranks' metrics over ``group``: means for ``reduce="mean"``
+    (``*_sum`` and ``*_cnt`` summed); for ``"sum"`` only ``loss`` (each
+    rank's term) is summed, the others being reduced by the loss."""
+    W = world_size(group)
+    dev = metrics["loss"].device           # nccl reduces on the card only
+    keys = [k for k in metrics if reduce == "mean" or k == "loss"]
+    vals = [torch.as_tensor(metrics[k], device=dev).detach().float().clone()
+            for k in keys]
+    all_reduce_(vals, group)
+    out = dict(metrics)
+    for k, v in zip(keys, vals):
+        mean = reduce == "mean" and not k.endswith(("_sum", "_cnt"))
+        out[k] = v / W if mean else v
+    return out
+
+
 def make_train_step(loss_fn: Callable, opt: torch.optim.Optimizer,
                     ema_decay: float = 0.9999, grad_accum: int = 1,
-                    grad_clip: float = 1.0) -> Callable:
+                    grad_clip: float = 1.0, group=None,
+                    reduce: str | None = None,
+                    sharding: ZeroShards | None = None) -> Callable:
     """``loss_fn(batch) -> (loss, metrics)`` on the module the optimizer
     holds. Returns ``train_step(state, batch) -> metrics``, which updates
     ``state`` in place; with ``grad_accum > 1`` the batch's leading axis
     splits into that many micro-batches, gradients are averaged and the
-    metrics are the last micro-batch's."""
+    metrics are the last micro-batch's.
+
+    ``reduce`` (``"mean"`` or ``"sum"``) reduces the gradients, the model's
+    floating buffers (averaged) and the metrics over ``group`` (None: the
+    world's); ``sharding`` runs the update on the ``ZeroShards`` slices
+    that ``opt`` holds."""
+    if reduce not in (None, "mean", "sum"):
+        raise ValueError(f"reduce must be 'mean' or 'sum', got {reduce!r}")
 
     def train_step(state: TrainState, batch: dict) -> dict:
-        params = [p for group in opt.param_groups for p in group["params"]]
+        params = (list(sharding.params.values()) if sharding is not None
+                  else [p for g in opt.param_groups for p in g["params"]])
         for p in params:
             p.grad = None
         total = 0.0
@@ -224,6 +334,10 @@ def make_train_step(loss_fn: Callable, opt: torch.optim.Optimizer,
             if p.grad is None:            # no gradient reached it: zero
                 p.grad = torch.zeros_like(p)
         grads = [p.grad for p in params]
+        if reduce is not None:
+            all_reduce_(grads, group)
+            if reduce == "mean":
+                torch._foreach_div_(grads, float(world_size(group)))
         norm = global_norm(grads)
         # optax's arithmetic: t / norm * clip above the limit, t below it
         # (t / 1 * 1), without a host sync
@@ -231,16 +345,28 @@ def make_train_step(loss_fn: Callable, opt: torch.optim.Optimizer,
         one = torch.ones_like(norm)
         torch._foreach_div_(grads, torch.where(below, one, norm))
         torch._foreach_mul_(grads, torch.where(below, one, one * grad_clip))
+        if sharding is not None:
+            sharding.take_grads()
         opt.step()
+        if sharding is not None:
+            sharding.put_params()
         with torch.no_grad():
-            named = dict(state.model.named_parameters())
+            src = (sharding.shards if sharding is not None
+                   else dict(state.model.named_parameters()))
             ema = list(state.ema_params.values())
             torch._foreach_mul_(ema, ema_decay)
-            torch._foreach_add_(ema, [named[n] for n in state.ema_params],
+            torch._foreach_add_(ema, [src[n] for n in state.ema_params],
                                 alpha=1.0 - ema_decay)
+            bufs = [b for b in state.model.buffers()
+                    if b.is_floating_point()]
+            if reduce == "mean" and bufs:
+                all_reduce_(bufs, group)
+                torch._foreach_div_(bufs, float(world_size(group)))
         state.step += 1
         metrics = dict(metrics)
         metrics["loss"] = total / grad_accum
+        if reduce is not None:
+            metrics = reduce_metrics(metrics, group, reduce)
         metrics["grad_norm"] = norm
         return metrics
 

@@ -13,10 +13,16 @@ image embeddings of reference images instead of text and pins the
 reference views to their clean RGB-D latents (``attach_image_to_3d`` gives
 a pipeline its seeded random image tower and depth teacher).
 ``render_orbit_video`` renders the slerp-resampled trajectory for the video
-export. ``build_pipeline`` is the counterpart of ``bench.py::
-build_flagship``: flagship width (or the small test width) with seeded
-random weights; ``load_checkpoint`` then loads trained weights (a release
-bundle or a published ``full.ckpt``), as the JAX CLI's ``--ckpt`` does.
+export. Over a process group, ``generate(view_shard_group=...)`` splits
+each scene's views over the ranks (``MVLDMSystem.sample_view_sharded``,
+then ``decode_and_render_view_sharded``: the GS decoder's DiT gathers K and
+V over the ranks, one gather of the gaussians, each rank renders its own
+views), and ``render_orbit_video(group=...)`` splits the frames; every
+rank gets the whole result. ``build_pipeline`` is the counterpart of
+``bench.py::build_flagship``: flagship width (or the small test width)
+with seeded random weights; ``load_checkpoint`` then loads trained
+weights (a release bundle or a published ``full.ckpt``), as the JAX CLI's
+``--ckpt`` does.
 """
 from __future__ import annotations
 
@@ -32,6 +38,8 @@ from .models import (CLIPImageEncoder, CLIPTokenizer, GSDecoderModel,
                      MVLDMModel, TrajDiTModel, make_depth_fn)
 from .models.traj_dit import camera_to_token
 from .ops.gaussian import convert_gaussians, render_gaussians
+from .parallel.dist import (all_gather_cat, broadcast_, get_rank,
+                            resolve_group, world_size)
 from .systems import MVLDMSystem, TrajDiTSystem
 from .utils import (look_at, make_camera, resolve_device,
                     sample_from_dense_cameras)
@@ -139,7 +147,7 @@ class PrometheusPipeline:
                  sampler: str = "euler",
                  cfg_interval_frac: float | None = None,
                  use_3d_mode_every_m_steps: int = -1,
-                 refiner=None) -> dict:
+                 refiner=None, view_shard_group=None) -> dict:
         """Text -> 3DGS scene.
 
         Without ``cameras``, TrajDiT samples a 29-camera trajectory at
@@ -161,7 +169,17 @@ class PrometheusPipeline:
         ``depths_sds_gs_render``. Returns the result dict of the JAX
         pipeline plus ``timings``: seconds per stage (the card is
         synchronised at each stage boundary).
+
+        ``view_shard_group`` (a process group; ``dist.group.WORLD`` for the
+        world): every rank passes the same arguments, and the sampler and
+        the decode and render run view-sharded over its ranks; each rank
+        returns the whole result. It refuses 3D mode, whose re-render is
+        not sharded (as in JAX).
         """
+        if view_shard_group is not None and use_3d_mode_every_m_steps > 0:
+            raise ValueError("view_shard_group is not supported together "
+                             "with use_3d_mode_every_m_steps (3D-mode "
+                             "re-render is not view-sharded)")
         if use_3d_mode_every_m_steps > 0 and (
                 sampler != "euler" or cfg_interval_frac is not None):
             raise ValueError("use_3d_mode_every_m_steps supports only "
@@ -175,6 +193,11 @@ class PrometheusPipeline:
         mark = stage_timer(dev, timings)
         text_emb = self.encode_text(text)
         uncond_emb = self.encode_text([negative_text]).expand(text_emb.shape)
+        if view_shard_group is not None:
+            # one text embedding for every rank: the fallback tokenizer's
+            # ids differ between processes
+            uncond_emb = uncond_emb.contiguous()
+            broadcast_([text_emb, uncond_emb], view_shard_group)
         mark("encode_text")
         if cameras is None:
             dense = self.generate_trajectory(
@@ -195,14 +218,24 @@ class PrometheusPipeline:
                 self.decode_gaussians, cameras, text_emb, uncond_emb,
                 use_3d_mode_every_m_steps=use_3d_mode_every_m_steps,
                 render_size=hw * (model.image_size // model.latent_size), **kw)
+        elif view_shard_group is not None:
+            latents = self.mvldm.sample_view_sharded(
+                view_shard_group, cameras, text_emb, uncond_emb,
+                sampler=sampler, cfg_interval_frac=cfg_interval_frac, **kw)
         else:
             latents = self.mvldm.sample(
                 cameras, text_emb, uncond_emb, sampler=sampler,
                 cfg_interval_frac=cfg_interval_frac, **kw)
         mark("sample")
-        result = self._decode_and_render(
-            latents, cameras, dense, render_size, mark,
-            tile_capacity=render_tile_capacity)
+        if view_shard_group is not None:
+            result = self.decode_and_render_view_sharded(
+                view_shard_group, latents, cameras, render_size=render_size,
+                tile_capacity=render_tile_capacity, mark=mark)
+            result["dense_cameras"] = dense
+        else:
+            result = self._decode_and_render(
+                latents, cameras, dense, render_size, mark,
+                tile_capacity=render_tile_capacity)
         if refiner is not None:
             gaussians_sds = refiner.refine_gaussians(
                 result["gaussians"], text_emb[:1], uncond_emb[:1], dense,
@@ -302,6 +335,50 @@ class PrometheusPipeline:
                 "images_gs_render": images_gs, "depths_gs_render": depths_gs,
                 "masks_gs_render": masks_gs}
 
+    @torch.no_grad()
+    def decode_and_render_view_sharded(self, group, latents: torch.Tensor,
+                                       cameras: torch.Tensor, *,
+                                       render_size: int = 512,
+                                       tile_capacity: int = 1024,
+                                       mark: Callable | None = None) -> dict:
+        """The view-sharded tail of ``generate``: each rank of ``group``
+        (None: the world's) takes its ``N / world`` views of the whole
+        ``latents (B, N, 8, h, w)`` and ``cameras (B, N, 18)``, decodes them
+        in 2-D and through the GS decoder (its DiT gathering K and V over
+        the ranks), converts them to gaussians, gathers every rank's
+        gaussians once and renders its own views of the whole scene
+        through the compositor. The outputs are gathered: every rank
+        returns ``_decode_and_render``'s dict, view for view."""
+        group = resolve_group(group)
+        mark = mark or (lambda stage: None)
+        B, N = cameras.shape[:2]
+        W, r = world_size(group), get_rank(group)
+        if N % W:
+            raise ValueError(f"num views ({N}) must be divisible by the "
+                             f"group's size ({W})")
+        local = slice(r * (N // W), (r + 1) * (N // W))
+        lat, cams = latents[:, local], cameras[:, local]
+        imgs, deps = self.mvldm.decode_images_and_depths(lat)
+        mark("decode_2d")
+        h, w = lat.shape[-2:]
+        rm = make_raymap(cams, h, w).to(lat.dtype)
+        raw = self.gsdecoder.decode_latent(torch.cat([lat, rm], dim=2),
+                                           view_group=group)
+        gaussians = tuple(all_gather_cat(g, 1, group) for g in
+                          convert_gaussians(raw, cams, **self.gs_kwargs))
+        mark("decode_gaussians")
+        renders = self.render_views_chunked(
+            cams, gaussians, h=render_size, w=render_size,
+            tile_capacity=tile_capacity)
+        imgs, deps, ri, rd, rmask = (all_gather_cat(x, 1, group) for x in
+                                     (imgs, deps) + renders)
+        mark("render")
+        return {"cameras": cameras, "dense_cameras": cameras,
+                "latents_pred": latents, "images_pred": imgs,
+                "depths_pred": deps, "gaussians": gaussians,
+                "images_gs_render": ri, "depths_gs_render": rd,
+                "masks_gs_render": rmask}
+
     def build_refiner(self, kind: str = "mv_sds", **overrides):
         """A test-time SDS++ refiner on this pipeline's towers, its weights
         frozen (``requires_grad_(False)``).
@@ -375,10 +452,16 @@ class PrometheusPipeline:
     def render_orbit_video(self, gaussians, dense_cameras: torch.Tensor,
                            num_frames: int = 120, size: int = 512,
                            chunk: int = 8,
-                           tile_capacity: int = 512) -> torch.Tensor:
+                           tile_capacity: int = 512,
+                           group=None) -> torch.Tensor:
         """Render the first scene's trajectory, slerp-resampled to
         ``num_frames`` cameras, ``chunk`` frames a compositor launch ->
         ``(T, 3, size, size)`` float32 in [-1, 1] on the CPU.
+
+        ``group``: the frames split over its ranks (the cameras padded
+        with the last one to a multiple of the world size, each rank
+        rendering its share); the gathered frames, cut back to
+        ``num_frames``, on every rank.
 
         Tile capacity 512 is the JAX package's choice for this display
         path (``PERF.md`` holds the port's ``psnr_vs_exact`` readings at
@@ -389,10 +472,23 @@ class PrometheusPipeline:
         cams = sample_from_dense_cameras(
             dense_cameras[:1].to(torch.float32), t)
         g1 = tuple(g[:1] for g in gaussians)
-        frames = [render_gaussians(cams[:, i:i + chunk], g1, h=size, w=size,
-                                   tile_capacity=tile_capacity)[0][0].cpu()
-                  for i in range(0, num_frames, chunk)]
-        return torch.cat(frames, dim=0)
+        if group is None:
+            frames = [render_gaussians(cams[:, i:i + chunk], g1, h=size,
+                                       w=size, tile_capacity=tile_capacity
+                                       )[0][0].cpu()
+                      for i in range(0, num_frames, chunk)]
+            return torch.cat(frames, dim=0)
+        W, r = world_size(group), get_rank(group)
+        pad = -num_frames % W
+        cams = torch.cat([cams, cams[:, -1:].expand(1, pad, 18)], dim=1)
+        per = cams.shape[1] // W
+        mine = cams[:, r * per:(r + 1) * per]
+        frames = torch.cat([render_gaussians(mine[:, i:i + chunk], g1,
+                                             h=size, w=size,
+                                             tile_capacity=tile_capacity
+                                             )[0][0]
+                            for i in range(0, per, chunk)], dim=0)
+        return all_gather_cat(frames, 0, group)[:num_frames].cpu()
 
 
 def default_camera_token() -> torch.Tensor:

@@ -25,6 +25,18 @@ come from a ``torch.Generator`` or, for parity, from a ``draws`` dict the
 caller fills. With ``compute_dtype`` bf16 the networks run under autocast
 (bf16 compute, fp32 parameters); the preconditioning, losses and metrics
 run in fp32. The frozen VAE encodes under ``torch.no_grad``.
+
+View sharding over a process group (``prometheus_tpu``'s ``view_axis``):
+``sample_view_sharded`` runs each rank's share of the N views through the
+sampler, the U-Net's joint sites gathering K and V over the group and the
+CFG-rescale std reduced over every view of the scene; the result is
+``sample``'s. ``multi_view_loss_view_sharded`` is the sequence-parallel
+training loss: scene-level draws from a generator seeded alike on every
+rank, per-view draws from one seeded per rank, reductions over the group.
+It returns this rank's term of the loss over the global denominators: the
+ranks' terms sum to the loss, and their gradients summed over the ranks
+are its gradient (an all-reduced loss would multiply them by the world
+size).
 """
 from __future__ import annotations
 
@@ -39,6 +51,8 @@ from ..models.mv_ldm import MVLDMModel
 from ..models.unet_mv import precompute_text_kv
 from ..ops.gaussian import convert_gaussians, render_gaussians
 from ..ops.schedulers import Schedule, make_schedule
+from ..parallel.dist import (all_gather_cat, all_reduce_, get_rank,
+                             resolve_group, shard_batch_views, world_size)
 from ..utils.rays import raymap as make_raymap
 from .depth_loss import scale_and_shift_invariant_loss
 from .gs_decoder_system import psnr
@@ -104,9 +118,11 @@ class MVLDMSystem:
     def _guided_output(self, x, sigma, text_emb, uncond_text_emb, pose_emb,
                        uncond_pose_emb, guidance_type: str,
                        guidance_scale: float, cfg_rescale: float,
-                       text_kv: dict | None = None) -> torch.Tensor:
+                       text_kv: dict | None = None,
+                       view_group=None) -> torch.Tensor:
         """``x (B, N, 8, h, w)`` VE-noisy latents -> the guided network
-        output, float32."""
+        output, float32. With ``view_group`` the N views are this rank's
+        share and the rescale's std spans every view of the scene."""
         B, N = x.shape[:2]
         x_in = x * self.schedule.c_in(sigma)
         t = self._t_cond(sigma).expand(B, N)
@@ -118,7 +134,8 @@ class MVLDMSystem:
                          torch.cat(poses, dim=0).to(x_in.dtype)], dim=2)
         out = self.model.denoise(inp, torch.cat(txts, dim=0),
                                  torch.cat([t] * r, dim=0),
-                                 text_kv=text_kv).float()
+                                 text_kv=text_kv,
+                                 view_group=view_group).float()
         if guidance_type == "none":
             return out
         if guidance_type == "hybrid":
@@ -130,9 +147,8 @@ class MVLDMSystem:
             cond, uncond = out.chunk(2, dim=0)
             guided = uncond + guidance_scale * (cond - uncond)
         if cfg_rescale > 0:
-            dims = (1, 2, 3, 4)
-            std_cond = torch.std(cond, dim=dims, keepdim=True, correction=0)
-            std_g = torch.std(guided, dim=dims, keepdim=True, correction=0)
+            std_cond = scene_std(cond, view_group)
+            std_g = scene_std(guided, view_group)
             factor = cfg_rescale * (std_cond / torch.clamp_min(std_g, 1e-8)) \
                 + (1.0 - cfg_rescale)
             guided = guided * factor
@@ -202,8 +218,10 @@ class MVLDMSystem:
                      guidance_scale: float, guidance_type: str,
                      cfg_rescale: float, view_mask=None, ref_latents=None,
                      cfg_interval_frac: float | None = None,
-                     sampler: str = "euler") -> torch.Tensor:
-        """The denoising loop from a given starting ``x`` (float32).
+                     sampler: str = "euler",
+                     view_group=None) -> torch.Tensor:
+        """The denoising loop from a given starting ``x`` (float32); with
+        ``view_group`` over this rank's share of the views.
 
         With ``cfg_interval_frac`` the first ``round(frac * steps)`` steps
         (at least 1; Python's ``round``, half to even) are guided and the
@@ -234,7 +252,7 @@ class MVLDMSystem:
             out = self._guided_output(
                 x, sigma, text_embeddings, uncond_text_embeddings, pose_emb,
                 uncond_pose_emb, gtype, guidance_scale, cfg_rescale,
-                text_kv=kv[gtype])
+                text_kv=kv[gtype], view_group=view_group)
             x0 = self.schedule.denoise_output_to_x0(x, out, sigma)
             if ref_latents is not None and view_mask is not None:
                 x0 = torch.where(view_mask[:, :, :1] > 0.5,
@@ -246,6 +264,51 @@ class MVLDMSystem:
                 x = self.schedule.euler_step(x, x0, sigma, sigma_next)
             x0_prev, sigma_prev, has_prev = x0, sigma, True
         return x0
+
+    @torch.no_grad()
+    def sample_view_sharded(
+            self, group, cameras: torch.Tensor,
+            text_embeddings: torch.Tensor,
+            uncond_text_embeddings: torch.Tensor,
+            generator: torch.Generator | None = None,
+            num_inference_steps: int = 50, guidance_scale: float = 7.5,
+            guidance_type: str = "joint", cfg_rescale: float = 0.7,
+            latent_hw: int = 32, noise: torch.Tensor | None = None,
+            view_mask: torch.Tensor | None = None,
+            ref_latents: torch.Tensor | None = None,
+            cfg_interval_frac: float | None = None,
+            sampler: str = "euler") -> torch.Tensor:
+        """``sample`` with the N views of ``cameras (B, N, 18)`` split over
+        the ranks of ``group`` in rank order: each rank runs the loop on its
+        ``N / world`` views, the joint sites gathering K and V of every
+        view. The starting noise is ``sample``'s, drawn whole (or given
+        whole) and sliced; the ladder uses the global N. Every rank passes
+        the same inputs and gets the whole ``(B, N, 8, h, w)`` x0 latents
+        back (gathered). Raises ``ValueError`` unless the world size divides
+        N. ``group`` None is the world's group."""
+        group = resolve_group(group)
+        B, N = cameras.shape[:2]
+        W, r = world_size(group), get_rank(group)
+        if N % W:
+            raise ValueError(f"num views ({N}) must be divisible by the "
+                             f"group's size ({W})")
+        n = N // W
+        sigmas = self._ladder(num_inference_steps, N, sampler, cameras.device)
+        x = self._start(sigmas[0], (B, N, 2 * self.latent_channel, latent_hw,
+                                    latent_hw), generator, noise,
+                        cameras.device)
+        local = slice(r * n, (r + 1) * n)
+        out = self._sample_core(
+            x[:, local].contiguous(), sigmas, cameras[:, local],
+            text_embeddings, uncond_text_embeddings,
+            num_inference_steps=num_inference_steps,
+            guidance_scale=guidance_scale, guidance_type=guidance_type,
+            cfg_rescale=cfg_rescale,
+            view_mask=None if view_mask is None else view_mask[:, local],
+            ref_latents=None if ref_latents is None else ref_latents[:, local],
+            cfg_interval_frac=cfg_interval_frac, sampler=sampler,
+            view_group=group)
+        return all_gather_cat(out, 1, group)
 
     def render_to_latent(self, images: torch.Tensor,
                          depths: torch.Tensor) -> torch.Tensor:
@@ -337,24 +400,40 @@ class MVLDMSystem:
                         N: int, hw: int, *, num_ref_views: int = 0,
                         drop_pose_p: float = 0.1, drop_text_p: float = 0.1,
                         sample_posterior: bool = True,
-                        device: torch.device | str = "cpu") -> dict:
+                        device: torch.device | str = "cpu",
+                        rows: tuple | None = None,
+                        view_generator: torch.Generator | None = None,
+                        num_global_views: int | None = None) -> dict:
         """The random draws of one ``multi_view_loss``, from ``generator``
         with the JAX loss's distributions: ``sigmas (B,)`` (before the
         sigma adjustment), standard-normal ``noise (B, N, 8, hw, hw)``,
         ``ref_views`` (the first ``num_ref_views`` of a random permutation
-        of the N views), ``keep_pose (B,)`` and ``keep_text (B,)`` (a
+        of the views), ``keep_pose (B,)`` and ``keep_text (B,)`` (a
         uniform draw at or above the drop probability), and
         ``encode_noise (B, 2N, 4, hw, hw)`` for the posterior sample (None:
-        its mode)."""
+        its mode).
+
+        ``rows=(rank, world)`` (data parallel): the B scenes are rows
+        ``[rank * B, (rank + 1) * B)`` of a global batch of ``world * B``;
+        the draws are the global batch's, sliced, so the ranks together
+        draw what one process draws. View sharding: ``view_generator``
+        (seeded per rank) draws the per-view noise of the N local views,
+        and the permutation spans ``num_global_views``."""
         g = dict(generator=generator, device=device)
+        vg = g if view_generator is None else dict(generator=view_generator,
+                                                   device=device)
         c = self.latent_channel
+        r, W = rows or (0, 1)
+        rows_of = lambda x: x[r * B:(r + 1) * B]     # noqa: E731
+        Bg = B * W
         return {
-            "sigmas": self.schedule.sample_train_sigmas((B,), **g),
-            "noise": torch.randn(B, N, 2 * c, hw, hw, **g),
-            "ref_views": torch.randperm(N, **g)[:num_ref_views],
-            "keep_pose": torch.rand(B, **g) >= drop_pose_p,
-            "keep_text": torch.rand(B, **g) >= drop_text_p,
-            "encode_noise": (torch.randn(B, 2 * N, c, hw, hw, **g)
+            "sigmas": rows_of(self.schedule.sample_train_sigmas((Bg,), **g)),
+            "noise": rows_of(torch.randn(Bg, N, 2 * c, hw, hw, **vg)),
+            "ref_views": torch.randperm(num_global_views or N,
+                                        **g)[:num_ref_views],
+            "keep_pose": rows_of(torch.rand(Bg, **g) >= drop_pose_p),
+            "keep_text": rows_of(torch.rand(Bg, **g) >= drop_text_p),
+            "encode_noise": (rows_of(torch.randn(Bg, 2 * N, c, hw, hw, **vg))
                              if sample_posterior else None),
         }
 
@@ -364,7 +443,9 @@ class MVLDMSystem:
                         lambda_mse_depth: float = 1.0,
                         return_aux: bool = False, draws: dict | None = None,
                         generator: torch.Generator | None = None,
-                        sample_posterior: bool = True):
+                        sample_posterior: bool = True,
+                        rows: tuple | None = None, view_group=None,
+                        view_generator: torch.Generator | None = None):
         """The latent denoising loss on a multi-view batch: ``images_mv (B,
         N, 3, H, W)`` in [-1, 1], ``cameras_mv (B, N, 18)``, ``depths_mv
         (B, N, 1, H, W)`` pseudo-disparity in [0, 1], ``text_emb`` and
@@ -376,19 +457,33 @@ class MVLDMSystem:
         text dropout. The loss is the ``loss_weight``-weighted MSE of the
         x0 prediction on the image latents (channels 0-3) and the depth
         latents (4-7). ``draws`` (see ``draw_multi_view``) replaces the
-        draws from ``generator``. Returns ``(loss, metrics)``, with
-        ``return_aux`` also ``{"x0_pred": (B, N, 8, h, w)}``.
+        draws from ``generator`` (``rows``: see ``draw_multi_view``).
+        Returns ``(loss, metrics)``, with ``return_aux`` also ``{"x0_pred":
+        (B, N, 8, h, w)}``.
+
+        ``view_group``: the N views are this rank's share of the scene's
+        ``N * world`` (``multi_view_loss_view_sharded``); the reference
+        views, the sigma adjustment and the denominators are global, the
+        metrics are reduced over the group, and ``loss`` is this rank's
+        term: the ranks' terms sum to the loss. Its per-view draws come
+        from ``view_generator``.
         """
         images, cameras = batch["images_mv"], batch["cameras_mv"]
         depths = batch["depths_mv"]
         B, N = images.shape[:2]
         dev = images.device
         hw = images.shape[-1] // 2 ** (len(self.model.vae_ch_mult) - 1)
+        W = 1 if view_group is None else world_size(view_group)
+        n_global = N * W
         if draws is None:
+            if view_group is not None and view_generator is None:
+                raise ValueError("view-sharded draws need a view_generator "
+                                 "seeded per rank")
             draws = self.draw_multi_view(
                 generator, B, N, hw, num_ref_views=num_ref_views,
                 drop_pose_p=drop_pose_p, drop_text_p=drop_text_p,
-                sample_posterior=sample_posterior, device=dev)
+                sample_posterior=sample_posterior, device=dev, rows=rows,
+                view_generator=view_generator, num_global_views=n_global)
 
         depths_in = (depths * 2.0 - 1.0).expand(-1, -1, 3, -1, -1)
         with torch.no_grad(), self._autocast(dev):
@@ -397,14 +492,17 @@ class MVLDMSystem:
         x0 = torch.cat([lat[:, :N], lat[:, N:]], dim=2).float()
         h, w = x0.shape[-2:]
 
-        is_ref = torch.zeros(N, dtype=torch.bool, device=dev)
+        is_ref = torch.zeros(n_global, dtype=torch.bool, device=dev)
         if self.noise_type == "view_cond" and num_ref_views > 0:
             is_ref[draws["ref_views"].to(dev)] = True
+        if view_group is not None:
+            r = get_rank(view_group)
+            is_ref = is_ref[r * N:(r + 1) * N]
         ref_mask = is_ref[None, :, None, None, None]
 
         sigmas = draws["sigmas"].to(device=dev, dtype=torch.float32)
         if self.adjust_sigma_on_n:
-            sigmas = sigmas / math.sqrt(self.num_pred_views / N)
+            sigmas = sigmas / math.sqrt(self.num_pred_views / n_global)
         sig = sigmas[:, None, None, None, None]
         t_cond = self._t_cond(sigmas)[:, None].expand(B, N)
 
@@ -421,13 +519,18 @@ class MVLDMSystem:
                                batch["uncond_text_emb"])
 
         with self._autocast(dev):
-            pred = self.model.denoise(net_in, text_emb, t_cond)
+            pred = self.model.denoise(net_in, text_emb, t_cond,
+                                      view_group=view_group)
         x0_pred = self.schedule.denoise_output_to_x0(noisy, pred.float(), sig)
         x0_pred = torch.where(ref_mask, x0, x0_pred)
 
         wgt = self.schedule.loss_weight(sig)
         tgt = (~is_ref).to(x0.dtype)[None, :, None, None, None]
-        denom = torch.clamp_min(tgt.sum() * B / N, 1.0)
+        n_tgt = tgt.sum()
+        reduce = (lambda ts: all_reduce_(ts, view_group)
+                  ) if view_group is not None else (lambda ts: None)
+        reduce([n_tgt])
+        denom = torch.clamp_min(n_tgt * B / n_global, 1.0)
 
         def masked_mse(a, b):
             return (wgt * (a - b) ** 2 * tgt).sum() / (denom * a.shape[2]
@@ -436,8 +539,10 @@ class MVLDMSystem:
         loss_mse = masked_mse(x0_pred[:, :, 0:4], x0[:, :, 0:4])
         loss_mse_depth = masked_mse(x0_pred[:, :, 4:8], x0[:, :, 4:8])
         loss = lambda_mse * loss_mse + lambda_mse_depth * loss_mse_depth
-        metrics = {"loss_mv_latent_mse": loss_mse.detach(),
-                   "loss_mv_latent_mse_depth": loss_mse_depth.detach()}
+        metrics = {"loss_mv_latent_mse": loss_mse.detach().clone(),
+                   "loss_mv_latent_mse_depth":
+                       loss_mse_depth.detach().clone()}
+        reduce(list(metrics.values()))
 
         # per-scene loss sums and counts by log10(sigma) bucket: the loss
         # varies ~25x with the drawn sigma alone
@@ -447,6 +552,7 @@ class MVLDMSystem:
                 + lambda_mse_depth * d[:, :, 4:8].sum(2)        # (B, N, h, w)
             per_scene = (wgt[:, :, 0] * err * tgt[:, :, 0]).sum((1, 2, 3))
             per_scene_n = tgt[:, :, 0].expand(err.shape).sum((1, 2, 3))
+            reduce([per_scene, per_scene_n])
             per_scene = per_scene / (torch.clamp_min(per_scene_n, 1.0) / 4.0)
             edges = torch.tensor(self.sigma_bucket_edges, device=dev)
             bucket = torch.searchsorted(
@@ -458,6 +564,53 @@ class MVLDMSystem:
         if return_aux:
             return loss, metrics, {"x0_pred": x0_pred}
         return loss, metrics
+
+    def multi_view_loss_view_sharded(
+            self, group, batch: dict, *,
+            generator: torch.Generator | None = None,
+            view_generator: torch.Generator | None = None,
+            noise: torch.Tensor | None = None, sample_posterior: bool = True,
+            draws: dict | None = None, **loss_kw):
+        """The sequence-parallel training loss: every rank passes the whole
+        batch, keeps its ``N / world`` views of the ``*_mv`` leaves and runs
+        ``multi_view_loss`` over ``group``. ``noise (B, N, 8, h, w)`` (the
+        whole scene's, sliced here) and ``sample_posterior=False`` (the
+        posterior's mode) are the seams that make it equal the single
+        program's loss exactly; ``draws`` (a single program's, see
+        ``draw_multi_view``) replaces every draw, its per-view tensors
+        sliced here. Returns ``(this rank's term, metrics)``:
+        backpropagate the term and sum the gradients over the ranks. Raises
+        ``ValueError`` unless the world size divides N. ``group`` None is the
+        world's group."""
+        group = resolve_group(group)
+        N = batch["images_mv"].shape[1]
+        W, r = world_size(group), get_rank(group)
+        if N % W:
+            raise ValueError(f"num views ({N}) must be divisible by the "
+                             f"group's size ({W})")
+        local = shard_batch_views(batch, group)
+        n = N // W
+        if draws is not None:
+            enc = draws.get("encode_noise")
+            draws = dict(draws, noise=draws["noise"][:, r * n:(r + 1) * n],
+                         encode_noise=None if enc is None else torch.cat(
+                             [enc[:, r * n:(r + 1) * n],
+                              enc[:, N + r * n:N + (r + 1) * n]], dim=1))
+        elif noise is not None:
+            B, dev = batch["images_mv"].shape[0], batch["images_mv"].device
+            hw = noise.shape[-1]
+            draws = self.draw_multi_view(
+                generator, B, n, hw,
+                num_ref_views=loss_kw.get("num_ref_views", 0),
+                drop_pose_p=loss_kw.get("drop_pose_p", 0.1),
+                drop_text_p=loss_kw.get("drop_text_p", 0.1),
+                sample_posterior=sample_posterior, device=dev,
+                view_generator=view_generator, num_global_views=N)
+            draws["noise"] = noise[:, r * n:(r + 1) * n]
+        return self.multi_view_loss(
+            local, draws=draws, generator=generator,
+            sample_posterior=sample_posterior, view_group=group,
+            view_generator=view_generator, **loss_kw)
 
     def single_view_loss(self, batch: dict, dummy_camera: torch.Tensor, *,
                          draws: dict | None = None,
@@ -535,6 +688,24 @@ class MVLDMSystem:
             metrics["loss_gs_depth"] = loss_depth.detach()
             loss = loss + lambda_depth * loss_depth
         return loss, metrics
+
+
+def scene_std(a: torch.Tensor, group=None) -> torch.Tensor:
+    """The population std over dims 1-4 of each scene of ``a (B, n, ...)``:
+    a two-pass mean and variance (``jnp.std``'s), each sum reduced over
+    ``group``, whose ranks hold the scene's other views (None: the views
+    are all here). One rank's group computes what no group does, bit for
+    bit."""
+    dims = (1, 2, 3, 4)
+    count = a[0].numel() * (1 if group is None else world_size(group))
+    total = a.sum(dim=dims, keepdim=True)
+    if group is not None:
+        all_reduce_([total], group)
+    mean = total / count
+    var = ((a - mean) ** 2).sum(dim=dims, keepdim=True)
+    if group is not None:
+        all_reduce_([var], group)
+    return torch.sqrt(var / count)
 
 
 def resize_views(x: torch.Tensor, size: int) -> torch.Tensor:

@@ -5,8 +5,10 @@
          [--depth_teacher {da2,luminance}]] \\
         [--small] [--max_steps N] [--batch_size B] [--seed S] \\
         [--log_every K] [--save_every K] [--val_every K] [--ckpt_dir DIR] \\
-        [--device cpu] [--debug]
+        [--device cpu] [--debug] [--param_sharding {replicated,fsdp}]
         [--joint_sv] [--render_loss] [--gsdecoder_ckpt DIR]   # mvldm only
+        [--sp_views]                                          # mvldm only
+    torchrun --nproc_per_node=N -m prometheus_torch.train ...
 
 Every stage builds its networks at the widths of
 ``prometheus_torch/configs`` (or the reduced ``--small`` widths of
@@ -67,8 +69,26 @@ Checkpoints (``checkpoint.py``) go to ``--ckpt_dir`` (default
 there (unless the config's ``training.resume_from_checkpoint`` is not
 ``latest``). It runs on the card unless
 ``--device cpu`` is given; on the card the networks compute in bf16 with
-fp32 parameters (``bf16-mixed``), on the CPU in fp32. ``--sp_views`` and
-``--param_sharding fsdp`` are not ported yet (ROADMAP.md) and raise.
+fp32 parameters (``bf16-mixed``), on the CPU in fp32.
+
+Under ``torchrun`` the ranks join over ``nccl``, each on
+``cuda:$LOCAL_RANK`` (``gloo`` with ``--device cpu``), on a mesh
+(``parallel/dist.py``): the hybrid ``("dcn", "data")`` mesh when the ranks
+span more than one node, a flat ``("data",)`` one otherwise.
+``--batch_size`` (and the config's ``training.batch_size``) is per rank:
+the global batch is per rank x world x ``accumulate_grad_batches``. Every
+rank builds the same weights from the seed. A synthetic global batch is
+drawn from the shared seed and each rank keeps its slice; from disk each
+rank's loader reads its own slice (seeded ``seed + rank``). The losses'
+per-scene draws are the global batch's, sliced, so N ranks compute what
+one process computes, and the gradients are averaged. ``--sp_views``
+(plain ``mvldm`` only, the views divisible by the world size) splits each
+scene's views over the ranks instead: every rank holds the whole batch
+(not multiplied by the world size), ``multi_view_loss_view_sharded``
+gathers K and V at the U-Net's joint sites, and the ranks' gradients are
+summed. ``--param_sharding fsdp`` shards the optimizer state and the EMA
+(``parallel.ZeroShards``) inside a node. Rank 0 alone logs, writes
+snapshots and writes the (whole) checkpoints.
 """
 from __future__ import annotations
 
@@ -88,13 +108,21 @@ from .config import DEFAULT_CONFIG, load_config
 from .models import GSDecoderModel, MVLDMModel, TrajDiTModel, make_depth_fn
 from .models.lpips import make_lpips_fn
 from .ops.schedulers import make_schedule
-from .parallel import (TrainState, freeze_, frozen_components,
+from .parallel import (TrainState, ZeroShards, freeze_, frozen_components,
                        init_train_state, make_optimizer, make_train_step)
+from .parallel.dist import (barrier, broadcast_, data_group, get_rank,
+                            init_from_env, is_main_process, local_batch_size,
+                            make_hybrid_mesh, make_mesh, shard_batch,
+                            shard_batch_per_host, shard_group, world_size)
 from .systems import GSDecoderSystem, MVLDMSystem, TrajDiTSystem
+from .systems.traj_dit_system import TOKEN_DIM
 from .utils import get_random_cameras, resolve_device
 from .utils.nan_guard import assert_finite, enable_nan_debug
 from .weights import random_module
 
+# --sp_views over more than one rank: rank r draws its views' noise from a
+# generator seeded seed + SP_VIEW_SEED * (r + 1)
+SP_VIEW_SEED = 1000003
 # the optimizer and EMA of prometheus_tpu/configs/experiment/
 # mvldm_vpred_exp.yaml (which train.py reads for every stage)
 OPTIM = dict(learning_rate=1e-5, weight_decay=1e-4, betas=(0.9, 0.95),
@@ -212,6 +240,54 @@ def dummy_sv_camera(image_size: int) -> torch.Tensor:
                          float(image_size)], dtype=torch.float32)
 
 
+@dataclasses.dataclass(frozen=True)
+class Parallel:
+    """How a run spreads over its ranks: the process group batches shard
+    and gradients reduce over (``group``; None runs alone, and the world's
+    group is ``dist.group.WORLD``), the group FSDP shards over
+    (``shard_group``; None: ``group``), and the modes. This rank's place
+    is read from ``group``."""
+
+    group: object = None
+    shard_group: object = None
+    sp_views: bool = False
+    fsdp: bool = False
+
+    @property
+    def active(self) -> bool:
+        """Over a process group (at any world size)."""
+        return self.group is not None
+
+    @property
+    def rank(self) -> int:
+        return get_rank(self.group) if self.active else 0
+
+    @property
+    def world(self) -> int:
+        return world_size(self.group) if self.active else 1
+
+    @property
+    def reduce(self) -> str | None:
+        """The train step's gradient reduction."""
+        if not self.active:
+            return None
+        return "sum" if self.sp_views else "mean"
+
+    @property
+    def rows(self) -> tuple | None:
+        """Data parallel over more than one rank: ``(rank, world)``, this
+        rank's place in the global batch."""
+        if self.sp_views or self.world == 1:
+            return None
+        return self.rank, self.world
+
+    def shard(self, global_batch: dict, micro_batches: int) -> dict:
+        """This rank's slice of a synthetic global batch."""
+        if self.rows is None:
+            return global_batch
+        return shard_batch(global_batch, self.group, micro_batches)
+
+
 @dataclasses.dataclass(eq=False)
 class Trainer:
     """A built run: the system, its train state and step, the loss the
@@ -230,6 +306,7 @@ class Trainer:
     gs_system: GSDecoderSystem | None = None     # mvldm --render_loss
     stage: str = ""
     feed: DiskFeed | None = None
+    parallel: Parallel = Parallel()
 
     @property
     def device(self) -> torch.device:
@@ -244,19 +321,29 @@ class Trainer:
 
 
 def _finish(stage, system, model, loss_fn, cfg, batch_size, g, make_batch,
-            frozen=None) -> Trainer:
-    """Freeze, build the optimizer, the train state and the step."""
+            frozen=None, parallel: Parallel | None = None) -> Trainer:
+    """Freeze, build the optimizer (over ``ZeroShards`` slices with
+    ``--param_sharding fsdp``), the train state and the step."""
+    par = parallel or Parallel()
     trained = freeze_(model, frozen)
+    sharding = None
+    if par.fsdp:
+        sharding = ZeroShards([(n, p) for n, p in model.named_parameters()
+                               if p.requires_grad],
+                              par.group if par.shard_group is None
+                              else par.shard_group)
+        trained = list(sharding.shards.values())
     opt = make_optimizer(trained, cfg["learning_rate"], cfg["weight_decay"],
                          cfg["betas"], mu_dtype=cfg["adam_mu_dtype"])
-    trainer = Trainer(system, init_train_state(model, opt), loss_fn, cfg,
-                      batch_size or cfg["batch_size"], g, make_batch,
-                      stage=stage)
+    trainer = Trainer(system, init_train_state(model, opt, sharding),
+                      loss_fn, cfg, batch_size or cfg["batch_size"], g,
+                      make_batch, stage=stage, parallel=par)
     trainer.train_step = make_train_step(
         lambda batch: trainer.loss_fn(batch), opt,
         ema_decay=cfg["ema_decay"],
         grad_accum=cfg["accumulate_grad_batches"],
-        grad_clip=cfg["grad_clip"])
+        grad_clip=cfg["grad_clip"], group=par.group, reduce=par.reduce,
+        sharding=sharding)
     return trainer
 
 
@@ -269,10 +356,13 @@ def _compute_dtype(device: torch.device, cfg: dict) -> torch.dtype:
 def build_gsdecoder_trainer(small: bool = False,
                             device: str | torch.device = "cuda",
                             seed: int = 0, batch_size: int | None = None,
-                            overrides: dict | None = None) -> Trainer:
+                            overrides: dict | None = None,
+                            parallel: Parallel | None = None) -> Trainer:
     """The stage-1 run at flagship (or ``small``) widths with seeded random
     weights on ``device``; bf16-mixed on a card, fp32 on the CPU.
-    ``overrides`` replace keys of the stage's settings dict."""
+    ``overrides`` replace keys of the stage's settings dict; ``parallel``
+    spreads it over ranks."""
+    par = parallel or Parallel()
     device = resolve_device(device)
     cfg = dict(CONFIGS[("gsdecoder", small)], **(overrides or {}))
     g = torch.Generator(device=device).manual_seed(seed)
@@ -287,12 +377,13 @@ def build_gsdecoder_trainer(small: bool = False,
                            render_size=cfg["render_size"])
 
     def make_batch(tr):
-        return synthetic_mv_batch(tr.generator, tr.batch_size,
-                                  n_in + cfg["num_novel_views"],
-                                  cfg["image_size"], n_in, latent, tr.device)
+        return par.shard(synthetic_mv_batch(
+            tr.generator, tr.batch_size * par.world,
+            n_in + cfg["num_novel_views"], cfg["image_size"], n_in, latent,
+            tr.device), cfg["accumulate_grad_batches"])
 
     return _finish("gsdecoder", system, model, loss_fn, cfg, batch_size, g,
-                   make_batch)
+                   make_batch, parallel=par)
 
 
 def build_mvldm_trainer(small: bool = False,
@@ -300,17 +391,24 @@ def build_mvldm_trainer(small: bool = False,
                         batch_size: int | None = None, joint_sv: bool = False,
                         render_loss: bool = False,
                         gsdecoder_ckpt: str | None = None,
-                        overrides: dict | None = None) -> Trainer:
+                        overrides: dict | None = None,
+                        parallel: Parallel | None = None) -> Trainer:
     """The stage-2 run at flagship (or ``small``) widths with seeded random
     weights on ``device``: the multi-view loss, plus the single-view loss
     on a batch with ``images_sv`` (``joint_sv`` puts them in the synthetic
     batches) and the rendering loss through a frozen GS decoder with
     ``render_loss``. The VAE and the text tower are frozen; bf16-mixed on a
     card, fp32 on the CPU. ``overrides`` replace keys of the stage's
-    settings dict."""
+    settings dict; ``parallel`` spreads it over ranks (``--sp_views``: the
+    views of each scene)."""
+    par = parallel or Parallel()
     device = resolve_device(device)
     cfg = dict(CONFIGS[("mvldm", small)], **(overrides or {}))
     g = torch.Generator(device=device).manual_seed(seed)
+    # per-view draws of --sp_views: one generator a rank (the shared one
+    # when it runs alone, which makes it the plain step)
+    view_g = g if par.world == 1 else torch.Generator(
+        device=device).manual_seed(seed + SP_VIEW_SEED * (par.rank + 1))
     cdt = _compute_dtype(device, cfg)
     model = random_module(MVLDMModel, cfg["model"], device, g).train()
     system = MVLDMSystem(model=model,
@@ -341,12 +439,19 @@ def build_mvldm_trainer(small: bool = False,
     sv_cam = dummy_sv_camera(cfg["image_size"]).to(device)
 
     def loss_fn(batch):
+        if par.sp_views:
+            return system.multi_view_loss_view_sharded(
+                par.group, batch, generator=g, view_generator=view_g,
+                drop_pose_p=cfg["drop_pose_p"],
+                drop_text_p=cfg["drop_text_p"])
         loss, metrics, aux = system.multi_view_loss(
             batch, drop_pose_p=cfg["drop_pose_p"],
-            drop_text_p=cfg["drop_text_p"], return_aux=True, generator=g)
+            drop_text_p=cfg["drop_text_p"], return_aux=True, generator=g,
+            rows=par.rows)
         if "images_sv" in batch:
             loss_sv, m_sv = system.single_view_loss(
-                batch, sv_cam, drop_text_p=cfg["drop_text_p_sv"], generator=g)
+                batch, sv_cam, drop_text_p=cfg["drop_text_p_sv"], generator=g,
+                rows=par.rows)
             loss = loss + cfg["lambda_sv"] * loss_sv
             metrics.update(m_sv)
         if gs_system is not None:
@@ -360,24 +465,28 @@ def build_mvldm_trainer(small: bool = False,
         return loss, metrics
 
     def make_batch(tr):
-        return synthetic_mvldm_batch(
-            tr.generator, tr.batch_size, cfg["num_views"], cfg["image_size"],
-            cfg["model"]["context_dim"],
-            sv=cfg["images_per_iter"] if joint_sv else 0, device=tr.device)
+        return par.shard(synthetic_mvldm_batch(
+            tr.generator, tr.batch_size * (1 if par.sp_views else par.world),
+            cfg["num_views"], cfg["image_size"], cfg["model"]["context_dim"],
+            sv=cfg["images_per_iter"] if joint_sv else 0, device=tr.device),
+            cfg["accumulate_grad_batches"])
 
     trainer = _finish("mvldm", system, model, loss_fn, cfg, batch_size, g,
                       make_batch,
-                      frozen=frozen_components("vae", "text_encoder"))
+                      frozen=frozen_components("vae", "text_encoder"),
+                      parallel=par)
     trainer.gs_system = gs_system
     return trainer
 
 
 def build_trajdit_trainer(small: bool = False,
                           device: str | torch.device = "cuda", seed: int = 0,
-                          batch_size: int | None = None) -> Trainer:
+                          batch_size: int | None = None,
+                          parallel: Parallel | None = None) -> Trainer:
     """The TrajDiT stage at flagship (or ``small``) width with seeded random
     weights on ``device``: batches of 29-camera orbit trajectories and text
-    embeddings."""
+    embeddings; ``parallel`` spreads it over ranks."""
+    par = parallel or Parallel()
     device = resolve_device(device)
     cfg = CONFIGS[("trajdit", small)]
     g = torch.Generator(device=device).manual_seed(seed)
@@ -386,20 +495,31 @@ def build_trajdit_trainer(small: bool = False,
     cdt = _compute_dtype(device, cfg)
 
     def loss_fn(batch):
-        loss = system.loss(batch["cameras_mv"], batch["text_emb"],
-                           generator=g, compute_dtype=cdt)
+        t = noise = None
+        if par.rows is not None:         # the global batch's draws, sliced
+            r, W = par.rows
+            B, dev = batch["cameras_mv"].shape[0], batch["cameras_mv"].device
+            mine = slice(r * B, (r + 1) * B)
+            t = torch.randint(0, system.schedule.num_train_timesteps,
+                              (B * W,), generator=g, device=dev)[mine]
+            noise = torch.randn((B * W, model.num_tokens, TOKEN_DIM),
+                                generator=g, device=dev)[mine]
+        loss = system.loss(batch["cameras_mv"], batch["text_emb"], t=t,
+                           noise=noise, generator=g, compute_dtype=cdt)
         return loss, {"loss_traj": loss.detach()}
 
     def make_batch(tr):
+        B = tr.batch_size * par.world
         cams = get_random_cameras(model.num_tokens, tr.generator,
                                   size=cfg["image_size"], device=tr.device)
-        return {"cameras_mv": cams[None].repeat(tr.batch_size, 1, 1),
-                "text_emb": torch.randn(
-                    tr.batch_size, 77, model.y_embedder.in_features,
-                    generator=tr.generator, device=tr.device) * 0.02}
+        return par.shard({"cameras_mv": cams[None].repeat(B, 1, 1),
+                          "text_emb": torch.randn(
+                              B, 77, model.y_embedder.in_features,
+                              generator=tr.generator, device=tr.device)
+                          * 0.02}, cfg["accumulate_grad_batches"])
 
     return _finish("trajdit", system, model, loss_fn, cfg, batch_size, g,
-                   make_batch)
+                   make_batch, parallel=par)
 
 
 class DiskFeed:
@@ -573,10 +693,10 @@ def depth_teacher(name: str, cfg, device: torch.device) -> Callable:
 def attach_disk_feed(trainer: Trainer, cfg, seed: int,
                      depth_fn: Callable) -> DiskFeed:
     """Build the config's training dataset and its loader, and make the
-    trainer's batches come from it: images and cameras to the device
-    (pinned, ``non_blocking``), ``depth_fn``'s depths (the feed's
-    ``depth_fn``), and for stage 2 the frozen
-    CLIP tower's embeddings of the captions (``text_emb``), of the empty
+    trainer's batches come from it: the rank's batch to the device
+    (``shard_batch_per_host``: pinned, ``non_blocking``), ``depth_fn``'s
+    depths (the feed's ``depth_fn``), and for stage 2 the frozen CLIP
+    tower's embeddings of the captions (``text_emb``), of the empty
     prompt (``uncond_text_emb``) and of each single-view caption
     (``text_emb_sv``, ``(B, M, 77, D)``); stage 1 draws the encoder's
     sampling noise from the trainer's generator."""
@@ -584,19 +704,22 @@ def attach_disk_feed(trainer: Trainer, cfg, seed: int,
     from .models.clip_text import CLIPTokenizer
 
     tc, dev, system = trainer.cfg, trainer.device, trainer.system
+    par = trainer.parallel
     ds_cfg = dict(cfg["dataset"])
     dataset = build_dataset(dict(ds_cfg["train"]),
                             common_kwargs_from_group(ds_cfg))
-    loader = make_loader(dataset, trainer.batch_size,
-                         num_workers=tc["num_workers"], seed=seed,
-                         pin_memory=dev.type == "cuda")
+    # data parallel: each rank's loader reads its slice of the global
+    # batch, seeded seed + rank; --sp_views: every rank reads the whole
+    # batch (its views split in the loss), seeded alike
+    dp = not par.sp_views
+    loader = make_loader(
+        dataset, local_batch_size(trainer.batch_size * par.world, par.group)
+        if dp else trainer.batch_size, num_workers=tc["num_workers"],
+        seed=seed + par.rank if dp else seed, pin_memory=dev.type == "cuda")
     img = tc["image_size"]
 
-    def to_dev(x):
-        return x.to(dev, non_blocking=True)
-
     def images_of(raw, key):
-        images = to_dev(raw[key])
+        images = raw[key]
         if images.shape[-1] != img or images.shape[-2] != img:
             # attention sequences grow 4x an octave: fail with the fix
             raise ValueError(
@@ -616,16 +739,24 @@ def attach_disk_feed(trainer: Trainer, cfg, seed: int,
                 return model.encode_text(ids).float()
 
         def convert(raw):
+            raw = shard_batch_per_host(raw, dev)
             images = images_of(raw, "images_mv")
             B = images.shape[0]
             if "emb" not in uncond:
                 uncond["emb"] = embed([""])
             out = {"images_mv": images,
-                   "cameras_mv": to_dev(raw["cameras_mv"]),
+                   "cameras_mv": raw["cameras_mv"],
                    "depths_mv": feed.depth_fn(images),
                    "text_emb": embed(raw["text_mv"]),
                    "uncond_text_emb": uncond["emb"].expand(
                        (B,) + uncond["emb"].shape[1:])}
+            if not dp and par.active:
+                # --sp_views: every rank's views of a scene take one
+                # caption embedding (the fallback tokenizer's ids differ
+                # between processes)
+                out["uncond_text_emb"] = out["uncond_text_emb"].contiguous()
+                broadcast_([out["text_emb"], out["uncond_text_emb"]],
+                           par.group)
             if "images_sv" in raw:
                 images_sv = images_of(raw, "images_sv")
                 M = images_sv.shape[1]
@@ -640,9 +771,10 @@ def attach_disk_feed(trainer: Trainer, cfg, seed: int,
         latent = img // 2 ** (len(tc["model"]["vae_ch_mult"]) - 1)
 
         def convert(raw):
+            raw = shard_batch_per_host(raw, dev)
             images = images_of(raw, "images_mv")
             return {"images_mv": images,
-                    "cameras_mv": to_dev(raw["cameras_mv"]),
+                    "cameras_mv": raw["cameras_mv"],
                     "depths_mv": feed.depth_fn(images),
                     "encode_noise": torch.randn(
                         images.shape[0], n_in, 4, latent, latent,
@@ -654,16 +786,18 @@ def attach_disk_feed(trainer: Trainer, cfg, seed: int,
 
 
 @contextlib.contextmanager
-def ema_weights(trainer: Trainer):
-    """The model with its EMA weights in place of the trained ones, in eval
-    mode; the live weights and mode come back on exit."""
+def ema_weights(trainer: Trainer, ema: dict | None = None):
+    """The model with its EMA weights (``ema``, whole, or the state's) in
+    place of the trained ones, in eval mode; the live weights and mode come
+    back on exit."""
     model = trainer.state.model
+    ema = trainer.state.ema_params if ema is None else ema
     named = dict(model.named_parameters())
-    live = {n: named[n].data for n in trainer.state.ema_params}
+    live = {n: named[n].data for n in ema}
     was_training = model.training
     try:
-        for n, ema in trainer.state.ema_params.items():
-            named[n].data = ema
+        for n, value in ema.items():
+            named[n].data = value
         model.eval()
         yield model
     finally:
@@ -674,7 +808,7 @@ def ema_weights(trainer: Trainer):
 
 @torch.no_grad()
 def validation_snapshot(trainer: Trainer, step: int, batch: dict,
-                        logger) -> None:
+                        logger, ema: dict | None = None) -> None:
     """The snapshot of ``train.py``'s ``--val_every``, with the EMA weights
     and a generator seeded by ``step``: mvldm samples the batch's first
     scene in 20 steps (``val_mv_images`` grid, ``val_mv_views`` GIF);
@@ -685,7 +819,7 @@ def validation_snapshot(trainer: Trainer, step: int, batch: dict,
 
     system, dev = trainer.system, trainer.device
     g = torch.Generator(device=dev).manual_seed(step)
-    with ema_weights(trainer) as model:
+    with ema_weights(trainer, ema) as model:
         if trainer.stage == "mvldm":
             with system._autocast(dev):
                 lat = system.sample(
@@ -766,20 +900,47 @@ def parse_args(argv=None):
     p.add_argument("--debug", action="store_true",
                    help="anomaly detection in the backward and a NaN / Inf "
                         "check of every batch")
-    # the JAX trainer's other options, refused
-    p.add_argument("--sp_views", action="store_true")
+    p.add_argument("--sp_views", action="store_true",
+                   help="mvldm: split each scene's views over the ranks "
+                        "(K/V gathered at the joint attention sites; the "
+                        "batch is not multiplied by the world size)")
     p.add_argument("--param_sharding", default="replicated",
-                   choices=["replicated", "fsdp"])
+                   choices=["replicated", "fsdp"],
+                   help="fsdp: shard the optimizer state and the EMA of "
+                        "parameters of 2^16 elements or more over the "
+                        "ranks of a node")
     return p.parse_args(argv)
 
 
+def build_parallel(args, cfg, device) -> tuple[Parallel, torch.device]:
+    """Join the ranks ``torchrun`` started (a process alone joins none),
+    build the mesh (hybrid over more than one node) and check
+    ``--sp_views`` as the JAX trainer does. Returns the ``Parallel`` and
+    this rank's device."""
+    env = init_from_env(device)
+    mesh = None
+    if env.backend is not None:
+        kind = env.device.type
+        mesh = (make_hybrid_mesh(kind) if env.num_nodes > 1
+                else make_mesh(kind))
+    par = Parallel(group=data_group(mesh), shard_group=shard_group(mesh),
+                   sp_views=args.sp_views,
+                   fsdp=args.param_sharding == "fsdp")
+    if args.sp_views:
+        if args.stage != "mvldm" or args.joint_sv or args.render_loss:
+            raise SystemExit("--sp_views supports the plain mvldm stage "
+                             "(no --joint_sv / --render_loss yet)")
+        n = (config_settings(cfg, "mvldm", args.small).get("num_views")
+             if cfg else None) or CONFIGS[("mvldm", args.small)]["num_views"]
+        if n % env.world:
+            raise SystemExit(f"--sp_views needs num views ({n}) divisible "
+                             f"by the device count ({env.world})")
+    return par, env.device
+
+
 def build_trainer(args) -> Trainer:
-    """The trainer ``args`` ask for, its batches synthetic or from disk."""
-    refused = {"--sp_views": args.sp_views,
-               "--param_sharding fsdp": args.param_sharding == "fsdp"}
-    for flag, given in refused.items():
-        if given:
-            raise NotImplementedError(f"{flag} is not ported yet")
+    """The trainer ``args`` ask for, its batches synthetic or from disk,
+    over the ranks ``torchrun`` started."""
     cfg = depth_fn = None
     if not args.synthetic:
         if args.stage == "trajdit":
@@ -788,14 +949,15 @@ def build_trainer(args) -> Trainer:
                 "disk its loss would need text embeddings, which the JAX "
                 "trainer does not make outside --stage mvldm either")
         cfg = load_config(args.config, args.override)
-        depth_fn = depth_teacher(args.depth_teacher, cfg,
-                                 resolve_device(args.device))
+    par, device = build_parallel(args, cfg, args.device)
+    if cfg:
+        depth_fn = depth_teacher(args.depth_teacher, cfg, device)
     seed = args.seed if args.seed is not None else int(
         cfg.get("seed", 0) if cfg else 0)
-    common = dict(small=args.small, device=args.device, seed=seed,
+    common = dict(small=args.small, device=device, seed=seed,
                   batch_size=args.batch_size,
                   overrides=config_settings(cfg, args.stage, args.small)
-                  if cfg else None)
+                  if cfg else None, parallel=par)
     if args.stage == "mvldm":
         trainer = build_mvldm_trainer(
             joint_sv=args.joint_sv, render_loss=args.render_loss,
@@ -816,17 +978,22 @@ def run(args, trainer: Trainer) -> Trainer:
     from .logging_utils import MetricLogger
 
     state = trainer.state
+    main = is_main_process()
     ckpt_dir = args.ckpt_dir or os.path.join(trainer.cfg["output_dir"],
                                              f"{args.stage}_ckpts")
     latest = latest_checkpoint(ckpt_dir)
     if latest and trainer.cfg["resume_from_checkpoint"] == "latest":
         restore_checkpoint(latest, state)
-        print(f"[train] resumed from {latest}")
-    os.makedirs(ckpt_dir, exist_ok=True)
+        if main:
+            print(f"[train] resumed from {latest}")
+    barrier()                # every rank has read before any rank writes
+    if main:
+        os.makedirs(ckpt_dir, exist_ok=True)
     log_path = os.path.join(ckpt_dir, "metrics.jsonl")
     max_steps = (args.max_steps if args.max_steps > 0
                  else trainer.cfg["steps_per_epoch"])
-    logger = MetricLogger(ckpt_dir) if args.val_every > 0 else None
+    logger = MetricLogger(ckpt_dir) if args.val_every > 0 and main else None
+    snapshots = args.val_every > 0
     anomaly = torch.is_anomaly_enabled()
     if args.debug:
         enable_nan_debug()
@@ -837,7 +1004,8 @@ def run(args, trainer: Trainer) -> Trainer:
             if args.debug:
                 assert_finite(batch, f"batch@step{step}")
             metrics = trainer.step(batch)
-            if step % args.log_every == 0 or step == max_steps - 1:
+            if main and (step % args.log_every == 0
+                         or step == max_steps - 1):
                 line = json.dumps({"step": step,
                                    "time": round(time.time() - t_start, 2),
                                    **{k: float(v)
@@ -845,9 +1013,12 @@ def run(args, trainer: Trainer) -> Trainer:
                 print(line, flush=True)
                 with open(log_path, "a") as fp:
                     fp.write(line + "\n")
-            if logger is not None and (step + 1) % args.val_every == 0:
+            if snapshots and (step + 1) % args.val_every == 0:
+                ema = state.full_ema()       # every rank (FSDP gathers)
                 try:
-                    validation_snapshot(trainer, step + 1, batch, logger)
+                    if logger is not None:
+                        validation_snapshot(trainer, step + 1, batch, logger,
+                                            ema=ema)
                 except Exception as e:   # a snapshot never ends the run
                     print(f"[train] validation snapshot failed: {e!r}")
             if args.save_every > 0 and (step + 1) % args.save_every == 0:
@@ -857,13 +1028,21 @@ def run(args, trainer: Trainer) -> Trainer:
             trainer.feed.close()
         enable_nan_debug(anomaly)
     save_checkpoint(ckpt_dir, state, max_steps)
-    print(f"[train] done: {max_steps} steps, ckpts in {ckpt_dir}")
+    if main:
+        print(f"[train] done: {max_steps} steps, ckpts in {ckpt_dir}")
     return trainer
 
 
 def main(argv=None) -> Trainer:
+    import torch.distributed as dist
+
     args = parse_args(argv)
-    return run(args, build_trainer(args))
+    joined = dist.is_initialized()
+    try:
+        return run(args, build_trainer(args))
+    finally:
+        if dist.is_initialized() and not joined:
+            dist.destroy_process_group()
 
 
 if __name__ == "__main__":

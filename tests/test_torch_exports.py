@@ -20,6 +20,7 @@ from prometheus_tpu.utils import image as jax_image
 from prometheus_torch import inference
 from prometheus_torch.utils import gs_io, image
 from test_torch_sampler_modes import one_thread  # noqa: F401  (fixture)
+from torch_dist_ranks import one_rank_group
 
 
 def gaussians(rng, n=300, batched=True):
@@ -118,8 +119,21 @@ def test_cli_writes_every_file(tmp_path):
         32, 66, 3)
     assert set(rec["timings"]) == {"encode_text", "trajectory", "sample",
                                    "decode_2d", "decode_gaussians", "render"}
-    with pytest.raises(SystemExit):
-        inference.parse_args(["--prompt", "x", "--shard_views"])
+    # --shard_views: in a process group of one rank the sampler, the decode
+    # and render and the video run their sharded paths and write the
+    # unsharded run's files
+    sharded = tmp_path / "sharded"
+    with one_rank_group():
+        (srec,) = inference.run(inference.parse_args([
+            "--prompt", "a cozy wooden cabin", "--device", "cpu", "--small",
+            "--num_steps", "2", "--num_traj_steps", "4", "--render_size",
+            "32", "--num_video_frames", "4", "--num_views", "2",
+            "--export_dir", str(sharded), "--shard_views"]))
+    assert srec["n_gaussians"] == n
+    sout = sharded / out.name
+    for name in ("gaussians.ply", "gaussians.splat", "gs_renders.png",
+                 "mv_images.png"):
+        assert (sout / name).read_bytes() == (out / name).read_bytes(), name
     assert inference.parse_args(["--prompt", "x", "--ckpt", "c"]).ckpt == "c"
     # --ref_image is ported (test_torch_image_to_3d runs it): it parses and
     # stands in for a prompt, while no input at all still exits

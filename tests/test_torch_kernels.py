@@ -871,3 +871,39 @@ def test_image_towers_stay_on_the_plain_path_on_card():
             assert bool(torch.isfinite(disp).all())
     torch.cuda.synchronize()
     assert FLASH_ATTN_FWD.launches == before
+
+
+@pytest.mark.gpu
+def test_view_sharded_sample_over_nccl_matches_sample_on_card():
+    """World size 1 over ``nccl``: ``sample_view_sharded`` (kernel A at
+    the joint sites, K/V gathered by a one-rank collective, the rescale's
+    std reduced over the group) against ``sample`` at the small widths in
+    bf16, same noise; ``max|out - ref| / max|ref| <= 1e-2``, kernel A's
+    tolerance (the two stds differ in summation order only)."""
+    need_card()
+    import torch.distributed as dist
+
+    from prometheus_torch.parallel.dist import free_port
+    from prometheus_torch.pipeline import build_pipeline
+    from prometheus_torch.utils import get_random_cameras
+
+    pipe = build_pipeline(small=True, device="cuda", dtype=torch.bfloat16)
+    g = torch.Generator(device="cuda").manual_seed(0)
+    cams = get_random_cameras(4, g, size=64, device="cuda")[None]
+    txt = torch.randn(1, 77, 64, generator=g, device="cuda") * 0.02
+    noise = torch.randn(1, 4, 8, 16, 16, generator=g, device="cuda")
+    kw = dict(num_inference_steps=2, latent_hw=16, noise=noise)
+    ref = pipe.mvldm.sample(cams, txt, torch.zeros_like(txt), **kw)
+    dist.init_process_group(
+        "nccl", init_method=f"tcp://127.0.0.1:{free_port()}", rank=0,
+        world_size=1, device_id=torch.device("cuda", 0))
+    try:
+        before = FLASH_ATTN_FWD.launches
+        out = pipe.mvldm.sample_view_sharded(
+            dist.group.WORLD, cams, txt, torch.zeros_like(txt), **kw)
+        torch.cuda.synchronize()
+        assert FLASH_ATTN_FWD.launches > before
+    finally:
+        dist.destroy_process_group()
+    err = float((out - ref).abs().max()) / float(ref.abs().max())
+    assert out.shape == ref.shape and err <= 1e-2

@@ -25,10 +25,14 @@
   400, 404), and with a stub ``generate_batch``: micro-batching (fewer
   dispatches than requests, each dispatch of exactly its real prompts: no
   padding), an off-default shape dispatched solo, and 503 from a full
-  queue.
+  queue; on 2 spawned ``gloo`` ranks, a rejected shape (400) and
+  generations that fail on one rank or on both (500), after which the
+  ranks serve on.
 - The batch loop (stub ``generate_batch``): chunks of the real prompts, the
-  JSON line, one ``.ply`` / ``.splat`` pair a scene; the refused flags; and
-  ``--selftest --device cpu``.
+  JSON line, one ``.ply`` / ``.splat`` pair a scene; the refused flags;
+  ``--shard_views`` in a one-rank process group against the unsharded
+  loop (the same files, byte for byte); and ``--selftest --device cpu``
+  (both modes on 2 spawned ``gloo`` ranks).
 """
 import json
 import threading
@@ -60,6 +64,9 @@ from prometheus_torch.weights import load_jax_params
 from test_torch_layers_vae import random_params, scaled_err
 from test_torch_sampler_modes import one_thread  # noqa: F401
 from test_torch_slice import random_weights
+from prometheus_torch.parallel.dist import spawn_local
+import torch_dist_ranks as ranks
+from torch_dist_ranks import one_rank_group
 
 pytestmark = pytest.mark.usefixtures("one_thread")
 PROMPTS = ["a cozy wooden cabin in a snowy forest", "a red car on a bridge"]
@@ -187,8 +194,13 @@ class _FakeMV:
     model = _FakeModel()
 
 
+class _FakeTraj:
+    num_tokens = 29
+
+
 class _FakePipe:
     mvldm = _FakeMV()
+    traj = _FakeTraj()
     device = torch.device("cpu")
 
 
@@ -357,13 +369,51 @@ def test_batch_loop_runs_real_prompts(monkeypatch, tmp_path, capsys):
 
 
 @pytest.mark.parametrize("flag", [["--aot_dir", "x"],
-                                  ["--compilation_cache", "x"],
-                                  ["--shard_views"]])
+                                  ["--compilation_cache", "x"]])
 def test_refused_flags(flag, capsys):
     with pytest.raises(SystemExit) as e:
         serve.parse_args(["--prompt", "x"] + flag)
     assert e.value.code == 2
     assert f"{flag[0]} is not supported by the port" in capsys.readouterr().err
+
+
+def test_shard_views_runs_and_matches_unsharded(tmp_path, capsys):
+    """``--shard_views`` in a process group of one rank: latency mode, one
+    scene at a time through the view-sharded sampler and decode-and-render,
+    exports the files of the unsharded batch loop at batch 1."""
+    pf = tmp_path / "p.txt"
+    pf.write_text("one\ntwo\n")
+    argv = ["--prompt_file", str(pf), "--batch_size", "1", "--num_steps",
+            "2", "--num_views", "2", "--render_size", "32", "--small",
+            "--device", "cpu"]
+    plain = serve.main(argv + ["--export_dir", str(tmp_path / "plain")])
+    with one_rank_group():
+        sharded = serve.main(argv + ["--export_dir", str(tmp_path / "sv"),
+                                     "--shard_views"])
+    assert sharded["scenes"] == plain["scenes"] == 2
+    names = sorted(p.name for p in (tmp_path / "plain").iterdir())
+    assert names == sorted(p.name for p in (tmp_path / "sv").iterdir())
+    for name in names:
+        assert (tmp_path / "sv" / name).read_bytes() == \
+            (tmp_path / "plain" / name).read_bytes(), name
+
+
+def test_http_over_two_ranks_serves_on_after_failures(tmp_path):
+    """``serve_http`` on 2 ``gloo`` ranks: a request of a shape the
+    pipeline cannot run gets 400 and is never dispatched; a generation that
+    fails on rank 0 alone (rank 1 idle in throughput mode) and one that
+    fails on both ranks (latency mode) get 500 with the error, and the
+    ranks serve the next requests in both modes."""
+    outs = spawn_local(ranks.http_ranks, 2, args=(str(tmp_path),))
+    answers = outs[0]["answers"]
+    assert [code for code, _ in answers] == [
+        code for _, code in ranks.HTTP_REQUESTS]
+    assert "num_views" in answers[0][1]["error"]
+    assert "planted failure on rank 0" in answers[1][1]["error"]
+    assert "planted failure on rank 0" in answers[2][1]["error"]
+    assert outs[1]["followed"] == len(ranks.HTTP_REQUESTS) - 1
+    for code, body in answers[3:]:
+        assert (tmp_path / f"{body['id']:05d}" / "scene.splat").exists()
 
 
 def test_selftest_cpu(capsys):

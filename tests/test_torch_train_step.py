@@ -33,6 +33,7 @@ from prometheus_torch.parallel import (freeze_, frozen_components,
                                        make_train_step)
 from prometheus_torch.train import (build_gsdecoder_trainer, build_trainer,
                                     main, parse_args)
+from test_torch_sampler_modes import one_thread  # noqa: F401  (fixture)
 
 SHAPES = {"dec_w": (4, 3), "dec_b": (3,), "enc_w": (3, 3)}
 TRAINED = ("dec_w", "dec_b")
@@ -156,12 +157,13 @@ def test_train_step_matches_jax(rng, grad_accum, grad_scale, variant):
     assert clipped == (grad_scale == 1.0)
 
 
+@pytest.mark.usefixtures("one_thread")
 def test_gsdecoder_entry_point_on_cpu(capsys, tmp_path):
     """``python -m prometheus_torch.train --stage gsdecoder --synthetic
     --small --max_steps 2 --device cpu``: finite metrics on every logged
     step, gradients that reach the model, parameters and EMANorm state
-    that move, and a checkpoint at the end; the options not ported
-    raise."""
+    that move, and a checkpoint at the end; ``--param_sharding fsdp``
+    gives the same run."""
     trainer = main(["--stage", "gsdecoder", "--synthetic", "--small",
                     "--max_steps", "2", "--device", "cpu", "--log_every",
                     "1", "--ckpt_dir", str(tmp_path)])
@@ -190,14 +192,39 @@ def test_gsdecoder_entry_point_on_cpu(capsys, tmp_path):
     for name, buf in trainer.state.model.named_buffers():
         assert not torch.equal(buf, ema_before[name]), name
     assert (tmp_path / "step_000000002" / "state.pt").exists()
-    for flags in (["--synthetic", "--sp_views"],
-                  ["--synthetic", "--param_sharding", "fsdp"]):
-        with pytest.raises(NotImplementedError, match="not ported"):
-            main(["--stage", "gsdecoder", "--device", "cpu", "--small",
-                  "--ckpt_dir", str(tmp_path / "refused")] + flags)
+    # --param_sharding fsdp (alone: one slice a parameter, the whole of it)
+    # steps as the replicated run does, bit for bit; --sp_views is the plain
+    # mvldm stage's, as in the JAX trainer
+    fsdp = main(["--stage", "gsdecoder", "--synthetic", "--small",
+                 "--max_steps", "2", "--device", "cpu", "--ckpt_dir",
+                 str(tmp_path / "fsdp"), "--param_sharding", "fsdp"])
+    assert fsdp.state.sharding is not None
+    for name, p in fsdp.state.model.named_parameters():
+        assert torch.equal(p, after[name]), name
+    for name, v in fsdp.state.full_ema().items():
+        assert torch.equal(v, trainer.state.ema_params[name]), name
+    with pytest.raises(SystemExit, match="plain mvldm"):
+        main(["--stage", "gsdecoder", "--device", "cpu", "--small",
+              "--synthetic", "--sp_views", "--ckpt_dir",
+              str(tmp_path / "refused")])
     # --depth_teacher da2 (the default, as in the JAX trainer) is accepted
     # under --synthetic and unused: no weights asked for, no teacher built
     synth = build_trainer(parse_args([
         "--stage", "gsdecoder", "--synthetic", "--depth_teacher", "da2",
         "--small", "--device", "cpu"]))
     assert synth.feed is None
+
+
+@pytest.mark.usefixtures("one_thread")
+def test_sp_views_alone_is_the_plain_mvldm_step(tmp_path):
+    """``--sp_views`` in a process alone: the view-sharded loss over one
+    rank draws as the plain step does (its per-view generator is the shared
+    one), so 2 steps leave the same parameters, bit for bit."""
+    argv = ["--stage", "mvldm", "--synthetic", "--small", "--max_steps",
+            "2", "--device", "cpu"]
+    plain = main(argv + ["--ckpt_dir", str(tmp_path / "plain")])
+    sp = main(argv + ["--ckpt_dir", str(tmp_path / "sp"), "--sp_views"])
+    assert sp.parallel.sp_views
+    for (name, a), b in zip(plain.state.model.named_parameters(),
+                            sp.state.model.parameters()):
+        assert torch.equal(a, b), name
