@@ -165,13 +165,39 @@ Phases (any failure ends the script with a non-zero exit):
     steps, render 512), the trained-statistics scene in 2 tile bands (B
     held on rank 0's band worklists), a 2-prompt throughput ``serve``
     batch; A and A-bwd held at any new shape these record;
-19. print the ``kernels`` JSON line (each kernel's ``launches`` from the
+19. the legacy GM-LDM path and the GS decoder's variants: ``gmldm_sample``,
+    ``GMLDMSystem.sample`` at the widths of ``configs/algorithm/gmldm.yaml``
+    (random bf16 weights; one prompt of scene_benchmark80 through the CLIP
+    ViT-H text tower; 8 orbit cameras, 4 Euler steps with CFG 7.5, render
+    256): stage times (denoise, decode, convert, render), peak memory,
+    launches (A and B must be > 0), the csort pairs dropped, the renders'
+    range, finite gaussians and renders, alpha not all zero, B held on its
+    render's worklists, a warm call profiled and one wrapped in
+    ``profiling.trace`` (the trace's path and size); ``gmldm_train``,
+    ``GMLDMSystem.loss`` and its backward on a ``LegacyMixingDataset`` over
+    a corpus the run writes (``build/chip_smoke/legacy_data/``: objaverse-
+    layout objects, captioned JPEGs) through ``make_loader``, 4 scenes x 8
+    views at 256^2, a warm-up step and 3
+    timed by ``profiling.StepTimer``: loss, gradient norm, peak memory,
+    launches (A and A-bwd > 0), ``device_memory_stats()``, finite loss and
+    gradients; the GM-LDM scene's ``.ply`` through ``python -m
+    prometheus_torch.tools.view_scene`` (the HTML's size) and ``python -m
+    prometheus_torch.tools.compute_metrics`` over the eval phase's
+    galleries (its averages); then 3 flagship stage-1 steps of each GS
+    decoder variant (``gsdecoder.network.use_cross_view_dit=false``,
+    ``use_ema_norm=false``) built through ``train.py``'s config path: step
+    seconds, peak memory, launches (all four > 0), finite loss, and B and C
+    held on the last step's worklists; A and A-bwd held at every new shape
+    these record;
+20. print the ``kernels`` JSON line (each kernel's ``launches`` from the
     path that runs it: ``generate`` without cameras for A and B, the train
     step for A-bwd and C, and every path's counts under
     ``launches_by_path``, the from-disk runs' warm steps and their
     snapshots (``val_snapshot``), image to 3D, eval and the DA2 run among
-    them, and the sharded paths, per rank; B's and C's entries also hold
-    their checks on the other worklists, B's its launches per orbit video,
+    them, the sharded paths, per rank, ``gmldm_sample``, ``gmldm_train``,
+    ``train_gsdecoder_no_dit`` and ``train_gsdecoder_no_ema``; B's and C's
+    entries also hold their checks on the other worklists, B's its
+    launches per orbit video,
     its check on a tile band and the ``psnr_vs_exact`` readings) and,
     last, the ``ok`` line.
 
@@ -335,6 +361,14 @@ DIST_TRAIN_BATCH, DIST_TOL, DIST_E2E_TOL = 2, 2e-2, 1e-1
 DIST_LOSS_TOL, DIST_PARAM_TOL = 1e-3, 2.5e-5
 DIST_GRAD_NORM_TOL, DIST_UPDATE_AGREE = 1e-3, 0.99
 DIST_GUIDED_TOL = 6e-2
+# the legacy GM-LDM path: the sampler's Euler steps (the reference samples
+# 50), the loss's steps (one warm-up, three timed) and its batch (the
+# experiment's 4 scenes x 8 views), and its corpus (objaverse-layout objects x views at 256x256,
+# captioned 256x256 images); the GS decoder variants' stage-1 steps (one
+# warm-up, two timed)
+GMLDM_STEPS, GMLDM_TRAIN_STEPS, GMLDM_BATCH = 4, 4, 4
+GMLDM_OBJECTS, GMLDM_VIEWS, GMLDM_T2I = 8, 12, 16
+VARIANT_STEPS = 3
 
 
 def log(msg: str) -> None:
@@ -1607,18 +1641,6 @@ def phase_serve(pipe, card: str, shapes: dict) -> dict:
     import torch
 
     from prometheus_torch import serve
-    from prometheus_torch.ops.gaussian import composite_grad
-
-    # keep the worklists of the loop's last compositor call only: a held
-    # worklist (4 GiB at batch 8) must not outlive its batch into the next
-    run_kernel, held = composite_grad.run_compositor_kernel, {}
-
-    def run_held(data, counts, img_h, img_w, tile_size=16):
-        held["calls"] += 1
-        if held["calls"] == held["last"]:
-            n_w = img_w // tile_size
-            held["args"] = (data, counts, n_w, n_w * (img_h // tile_size))
-        return run_kernel(data, counts, img_h, img_w, tile_size)
 
     out_root = LOG_DIR / "serve"
     shutil.rmtree(out_root, ignore_errors=True)
@@ -1638,9 +1660,9 @@ def phase_serve(pipe, card: str, shapes: dict) -> dict:
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
         batches = 1 + math.ceil(len(prompts) / bs)     # the warm-up first
-        held.clear()
-        held.update(calls=0, last=batches)
-        composite_grad.run_compositor_kernel = run_held
+        # keep the worklists of the loop's last compositor call only: a
+        # held worklist (4 GiB at batch 8) must not outlive its batch
+        held, restore = hold_compositor_args(last=batches)
         zero_counts()
         try:
             line = serve.run(args, pipe)
@@ -1651,7 +1673,7 @@ def phase_serve(pipe, card: str, shapes: dict) -> dict:
             shutil.rmtree(export, ignore_errors=True)
             continue
         finally:
-            composite_grad.run_compositor_kernel = run_kernel
+            restore()
         launches = read_counts()
         peak = torch.cuda.max_memory_allocated()
         per_batch = {k: v / batches for k, v in launches.items()}
@@ -3503,8 +3525,7 @@ def dist2_rank(rank: int, world: int, seed: int) -> dict:
     from prometheus_torch import serve
     from prometheus_torch.models import dit, ray_dit, unet_mv
     from prometheus_torch.ops import attention
-    from prometheus_torch.ops.gaussian import (composite_grad,
-                                               render_gaussians,
+    from prometheus_torch.ops.gaussian import (render_gaussians,
                                                render_gaussians_tile_sharded)
     from prometheus_torch.ops.gaussian.quality import \
         make_trained_stats_scene
@@ -3534,12 +3555,6 @@ def dist2_rank(rank: int, world: int, seed: int) -> dict:
     mk = dict(num_views=8, num_inference_steps=STEPS, render_size=512,
               image_size=model.image_size, latent_hw=model.latent_size)
     prompts = benchmark_prompts(2)
-    run_kernel, held = composite_grad.run_compositor_kernel, {}
-
-    def run_held(data, counts, img_h, img_w, tile_size=16):
-        n_w = img_w // tile_size
-        held["args"] = (data, counts, n_w, n_w * (img_h // tile_size))
-        return run_kernel(data, counts, img_h, img_w, tile_size)
 
     def timed(path, fn):
         torch.cuda.synchronize()
@@ -3634,13 +3649,13 @@ def dist2_rank(rank: int, world: int, seed: int) -> dict:
     scene = make_trained_stats_scene(
         cams512, torch.Generator(device=dev).manual_seed(5),
         n_gaussians=524288)
-    composite_grad.run_compositor_kernel = run_held
+    held, restore = hold_compositor_args()
     try:
         tile = timed("dist2_tile_render",
                      lambda: render_gaussians_tile_sharded(
                          group, cams512, scene, h=512, w=512))
     finally:
-        composite_grad.run_compositor_kernel = run_kernel
+        restore()
     thr = timed("dist2_serve_throughput", lambda: serve.generate_batch(
         pipe, prompts, seeded(), group=group, **mk))
     out["shapes"] = {k: {s: sorted(p) for s, p in shapes[k].items()}
@@ -3768,6 +3783,501 @@ def phase_dist_2rank(card: str, shapes: dict) -> dict:
     return dict(ranks=outs, seconds=wall)
 
 
+def gmldm_widths() -> dict:
+    """``GMLDMModel``'s widths from the port's ``configs/algorithm/
+    gmldm.yaml`` (the SD-2.1 U-Net at 256^2 / 32^2 latent; the VAE's ch 128,
+    mult (1, 2, 4, 4) are the module's defaults). The config's
+    ``extra_latent_channel: 7`` is not taken: the system feeds the 6 raymap
+    channels, as JAX's does."""
+    from prometheus_torch.config import load_config
+
+    net = load_config(overrides=["algorithm=gmldm",
+                                 "experiment=gmldm_dir3d_exp"])[
+        "algorithm"]["network"]
+    out = {k: net[k] for k in ("image_size", "latent_channel",
+                               "model_channels", "num_res_blocks",
+                               "num_head_channels", "context_dim",
+                               "use_checkpoint")}
+    out["channel_mult"] = tuple(net["channel_mult"])
+    return out
+
+
+def hold_compositor_args(last: int | None = None) -> tuple:
+    """Keep the arguments of the latest compositor launch (``(data,
+    counts, grid_w, tiles a view)``), or with ``last`` those of the
+    ``last``-th launch only, without changing what it computes. Returns
+    ``(held, restore)``."""
+    from prometheus_torch.ops.gaussian import composite_grad
+
+    run_kernel, held = composite_grad.run_compositor_kernel, {"calls": 0}
+
+    def run_held(data, counts, img_h, img_w, tile_size=16):
+        held["calls"] += 1
+        if last is None or held["calls"] == last:
+            n_w = img_w // tile_size
+            held["args"] = (data, counts, n_w, n_w * (img_h // tile_size))
+        return run_kernel(data, counts, img_h, img_w, tile_size)
+
+    def restore():
+        composite_grad.run_compositor_kernel = run_kernel
+
+    composite_grad.run_compositor_kernel = run_held
+    return held, restore
+
+
+def phase_gmldm_sample(seed: int, card: str, shapes: dict,
+                       binning: dict) -> dict:
+    """``GMLDMSystem.sample`` at the widths of ``configs/algorithm/
+    gmldm.yaml`` (random bf16 weights from the seed) over 8 random orbit
+    cameras: one prompt of scene_benchmark80 through the CLIP ViT-H text
+    tower (random, bf16), ``GMLDM_STEPS`` Euler steps with CFG 7.5, render
+    256. Stage times (CUDA events), peak memory, launches, the csort pairs
+    dropped, the renders' range; kernel B held on the render's worklists;
+    one warm call profiled (device busy and idle share) and one wrapped in
+    ``profiling.trace``. Returns the text tower and tokenizer for
+    ``phase_gmldm_train``."""
+    import torch
+
+    from prometheus_torch import profiling
+    from prometheus_torch.models import (CLIPTextModel, CLIPTokenizer,
+                                         GMLDMModel)
+    from prometheus_torch.ops.gaussian import render_gaussians
+    from prometheus_torch.systems import GMLDMSystem
+    from prometheus_torch.utils import get_random_cameras
+    from prometheus_torch.weights import random_module
+
+    t0 = time.perf_counter()
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    widths = gmldm_widths()
+    model = random_module(GMLDMModel, widths, "cuda", g).to(
+        torch.bfloat16).eval()
+    text = random_module(CLIPTextModel, {}, "cuda", g).to(
+        torch.bfloat16).eval()
+    tokenizer = CLIPTokenizer()
+    system = GMLDMSystem(model)
+    prompt = benchmark_prompts(1)[0]
+    with torch.no_grad():
+        emb = text(torch.from_numpy(tokenizer([prompt, ""])).cuda())
+    txt, unc = emb[:1], emb[1:]
+    cams = get_random_cameras(8, g, size=256, device="cuda")[None]
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    log(f"phase build gmldm: {time.perf_counter() - t0:.1f} s, "
+        f"{n_params / 1e9:.3f}B parameters (bf16), widths {widths}")
+
+    events = {}
+
+    def mark(stage):
+        events[stage] = torch.cuda.Event(enable_timing=True)
+        events[stage].record()
+
+    kw = dict(num_inference_steps=GMLDM_STEPS, guidance_scale=7.5,
+              latent_hw=32, render_size=256)
+    held, restore = hold_compositor_args()
+    torch.cuda.reset_peak_memory_stats()
+    shapes["path"] = "gmldm_sample"
+    zero_counts()
+    t0 = time.perf_counter()
+    mark("start")
+    out = system.sample(cams, txt, unc, generator=g, mark=mark, **kw)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_counts()
+    shapes["path"] = None
+    restore()
+    peak = torch.cuda.max_memory_allocated()
+    stats = binning_stats(binning)
+    names = ("start", "denoise", "decode", "convert", "render")
+    stage_ms = {b: events[a].elapsed_time(events[b])
+                for a, b in zip(names, names[1:])}
+
+    expect = {"latents_pred": (1, 8, 4, 32, 32),
+              "images_gs_render": (1, 8, 3, 256, 256),
+              "depths_gs_render": (1, 8, 1, 256, 256)}
+    for name, shape in expect.items():
+        if tuple(out[name].shape) != shape or not bool(
+                torch.isfinite(out[name]).all()):
+            raise RuntimeError(f"gmldm_sample: {name} {tuple(out[name].shape)}"
+                               f" is not finite or not {shape}")
+    for t in out["gaussians"]:
+        if t.shape[:2] != (1, 8 * 256 * 256) or not bool(
+                torch.isfinite(t).all()):
+            raise RuntimeError(f"gmldm_sample: bad gaussians "
+                               f"{tuple(t.shape)}")
+    with torch.no_grad():        # alpha, outside the counted run
+        alpha = render_gaussians(cams, out["gaussians"], h=256, w=256)[2]
+    alpha_mean = float(alpha.mean())
+    if not alpha_mean > 0.0:
+        raise RuntimeError("gmldm_sample: the renders' alpha is all zero")
+    # director3d colors are not clamped (``feats / (2 SH_C0)``), so the
+    # renders of random weights may leave [-1, 1], as in JAX
+    img = out["images_gs_render"]
+    lo, hi = float(img.min()), float(img.max())
+    for name in ("flash_attn_fwd", "composite_fwd"):
+        if launches[name] <= 0:
+            raise RuntimeError(f"{name} was not launched by gmldm_sample")
+    log(f"gmldm_sample ({GMLDM_STEPS} Euler steps, CFG 7.5, 8 views, latent "
+        f"32^2, render 256, prompt {prompt!r}) on {card}: cold {wall:.3f} s; "
+        "device-timeline stages " + " ".join(
+            f"{k} {v:.1f}ms" for k, v in stage_ms.items())
+        + f"; peak memory {peak / 2**30:.2f} GiB; launches {launches}; "
+        f"csort_pairs_dropped {stats['csort_pairs_dropped']} of "
+        f"{stats['instances_needed']:.0f} pairs needed; renders in "
+        f"[{lo:.4f}, {hi:.4f}], alpha mean {alpha_mean:.4f}")
+    data, counts, grid_w, tpv = held.pop("args")
+    check_b = check_composite_fwd(
+        "gmldm_sample's render worklists: 8 views at 256^2", data, counts,
+        grid_w, tpv)
+    del data, counts, alpha
+
+    profile_run(
+        "warm gmldm_sample", lambda: system.sample(cams, txt, unc,
+                                                   generator=g, **kw),
+        "profile_gmldm_sample.json")
+    busy = json.loads((LOG_DIR / "profile_gmldm_sample.json").read_text())
+    trace_dir = LOG_DIR / "gmldm_trace"
+    shutil.rmtree(trace_dir, ignore_errors=True)
+    t0 = time.perf_counter()
+    with profiling.trace(str(trace_dir)):
+        with profiling.annotate("gmldm_sample"):
+            system.sample(cams, txt, unc, generator=g, **kw)
+            torch.cuda.synchronize()
+    traced_s = time.perf_counter() - t0
+    trace_file = trace_dir / profiling.TRACE_FILE
+    trace_bytes = trace_file.stat().st_size
+    if not trace_bytes or "gmldm_sample" not in trace_file.read_text():
+        raise RuntimeError(f"profiling.trace wrote no usable {trace_file}")
+    log(f"profiling.trace around one gmldm_sample ({traced_s:.3f} s under "
+        f"the profiler): {trace_file} {trace_bytes} bytes")
+    return dict(
+        result=dict(wall_s=wall, stage_ms=stage_ms, peak_bytes=peak,
+                    launches=launches, csort=stats, range=[lo, hi],
+                    alpha_mean=alpha_mean, busy_ms=busy["busy_ms"],
+                    profiled_wall_ms=busy["wall_ms"],
+                    idle_share=1 - busy["busy_ms"] / busy["wall_ms"],
+                    trace_file=str(trace_file), trace_bytes=trace_bytes,
+                    composite_fwd=check_b),
+        gaussians=out["gaussians"], text=text, tokenizer=tokenizer)
+
+
+def write_legacy_corpus(root: Path, seed: int) -> dict:
+    """The GM-LDM corpus, written with numpy and PIL as
+    ``tests/test_legacy_datasets.py`` writes its scenes: ``objaverse/``
+    (``GMLDM_OBJECTS`` objects of ``GMLDM_VIEWS`` 256x256 JPEG views on an
+    orbit, OpenCV poses, pixel intrinsics and a caption, in an
+    ``annotation.pkl``) and ``t2i/`` (``GMLDM_T2I`` captioned JPEGs and an
+    ``annotations.json``)."""
+    import io
+    import pickle
+
+    import numpy as np
+    from PIL import Image
+
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[0:256, 0:256].astype(np.float32)
+    nbytes = 0
+
+    def jpeg(path: Path) -> None:
+        nonlocal nbytes
+        f, ph = rng.uniform(0.02, 0.12, (3, 2)), rng.uniform(0, 6, 3)
+        img = np.stack([127 + 90 * np.sin(yy * f[c, 0] + ph[c])
+                        * np.cos(xx * f[c, 1]) for c in range(3)], -1)
+        img += rng.normal(0, 12, img.shape)
+        buf = io.BytesIO()
+        Image.fromarray(np.clip(img, 0, 255).astype(np.uint8)).save(
+            buf, format="JPEG", quality=90)
+        path.parent.mkdir(parents=True, exist_ok=True)
+        path.write_bytes(buf.getvalue())
+        nbytes += len(buf.getvalue())
+
+    def orbit_pose(theta: float, r: float = 2.0) -> np.ndarray:
+        """OpenGL c2w on the y = 0 circle, looking at the origin."""
+        eye = np.asarray([r * np.sin(theta), 0.0, r * np.cos(theta)])
+        fwd = -eye / np.linalg.norm(eye)
+        right = np.cross(fwd, [0.0, 1.0, 0.0])
+        right /= np.linalg.norm(right)
+        c2w = np.eye(4)
+        c2w[:3, 0], c2w[:3, 1] = right, np.cross(right, fwd)
+        c2w[:3, 2], c2w[:3, 3] = -fwd, eye
+        return c2w
+
+    gl2cv = np.diag([1.0, -1.0, -1.0])
+    ann = {}
+    for s in range(GMLDM_OBJECTS):
+        name = f"obj_{s:03d}"
+        frames, poses = [], []
+        for i in range(GMLDM_VIEWS):
+            frames.append(f"{name}/{i:03d}.jpg")
+            jpeg(root / "objaverse" / frames[-1])
+            c2w = orbit_pose(2 * math.pi * i / GMLDM_VIEWS + 0.3 * s)
+            poses.append(np.concatenate([c2w[:3, :3] @ gl2cv, c2w[:3, 3:]],
+                                        axis=1).tolist())
+        ann[name] = {"frames": frames, "poses": poses,
+                     "intrinsics": [[280.0, 280.0, 128.0, 128.0]]
+                     * GMLDM_VIEWS,
+                     "captions": [f"a small test object number {s}"]}
+    (root / "objaverse" / "annotation.pkl").write_bytes(pickle.dumps(ann))
+    items = []
+    for i in range(GMLDM_T2I):
+        items.append({"file": f"im{i:03d}.jpg",
+                      "caption": f"a captioned test picture {i}"})
+        jpeg(root / "t2i" / items[-1]["file"])
+    (root / "t2i" / "annotations.json").write_text(json.dumps(items))
+    return dict(files=GMLDM_OBJECTS * GMLDM_VIEWS + GMLDM_T2I, bytes=nbytes)
+
+
+def phase_gmldm_train(seed: int, card: str, shapes: dict, text,
+                      tokenizer) -> dict:
+    """``GMLDMSystem.loss`` and its backward at the widths of
+    ``configs/algorithm/gmldm.yaml`` (fp32 parameters, bf16 autocast, the
+    U-Net's blocks checkpointed, the VAE frozen) on batches of a
+    ``LegacyMixingDataset`` over the corpus ``write_legacy_corpus`` writes,
+    through ``make_loader`` (2 worker processes): 4 scenes x 8 views at
+    256^2 (an out-of-memory error fails the phase). ``text_emb`` from the frozen text tower, ``uncond_text_emb`` from
+    ``""``. A warm-up step, then 3 timed by ``profiling.StepTimer.
+    measure``; loss, gradient norm, peak memory, launches of the last step,
+    ``device_memory_stats()``. No optimizer: JAX's trainer has none for
+    GM-LDM."""
+    import gc
+
+    import torch
+
+    from prometheus_torch import profiling
+    from prometheus_torch.datasets import LegacyMixingDataset, make_loader
+    from prometheus_torch.models import GMLDMModel
+    from prometheus_torch.systems import GMLDMSystem
+    from prometheus_torch.weights import random_module
+
+    root = LOG_DIR / "legacy_data"
+    shutil.rmtree(root, ignore_errors=True)
+    t0 = time.perf_counter()
+    corpus = write_legacy_corpus(root, seed)
+    log(f"legacy corpus: {corpus['files']} JPEGs, {corpus['bytes']} bytes "
+        f"in {time.perf_counter() - t0:.1f} s")
+    dataset = LegacyMixingDataset(
+        objaverse_kwargs=dict(root_dir=str(root / "objaverse"),
+                              annotation_path=str(root / "objaverse"
+                                                  / "annotation.pkl"),
+                              num_input_views=8, num_novel_views=0),
+        t2i_kwargs=dict(root_dir=str(root / "t2i"), images_per_iter=2),
+        img_size=256, fake_length=64)
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    model = random_module(GMLDMModel, gmldm_widths(), "cuda", g).train()
+    model.vae.requires_grad_(False)
+    params = [p for p in model.parameters() if p.requires_grad]
+    system = GMLDMSystem(model, compute_dtype=torch.bfloat16)
+
+    def embed(texts):
+        ids = torch.from_numpy(tokenizer(list(texts))).cuda()
+        with torch.no_grad():
+            return text(ids).float()
+
+    uncond = embed([""])
+    loader = make_loader(dataset, GMLDM_BATCH, num_workers=2, seed=seed,
+                         pin_memory=True)
+    it = iter(loader)
+    timer, steps = profiling.StepTimer(), []
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        for i in range(GMLDM_TRAIN_STEPS):
+            raw = next(it)
+            batch = {"images_mv": raw["images_mv"].cuda(non_blocking=True),
+                     "cameras_mv": raw["cameras_mv"].cuda(non_blocking=True),
+                     "text_emb": embed(raw["text_mv"])}
+            batch["uncond_text_emb"] = uncond.expand_as(batch["text_emb"])
+            torch.cuda.synchronize()
+            last = i == GMLDM_TRAIN_STEPS - 1
+            if last:
+                zero_counts()
+                shapes["path"] = "gmldm_train"
+            with timer.measure(sync=params[0]):
+                loss, _ = system.loss(batch, generator=g)
+                loss.backward()
+            shapes["path"] = None
+            launches = read_counts() if last else None
+            grads = [p.grad for p in params]
+            finite = all(bool(torch.isfinite(x).all()) for x in grads)
+            norm = float(torch.linalg.vector_norm(torch.stack(
+                [torch.linalg.vector_norm(x.float()) for x in grads])))
+            steps.append(dict(seconds=timer.last, loss=float(loss.detach()),
+                              grad_norm=norm, grads_finite=finite))
+            model.zero_grad(set_to_none=True)
+            del batch, loss, grads
+    finally:
+        it._shutdown_workers()
+    peak = torch.cuda.max_memory_allocated()
+    mem = profiling.device_memory_stats()
+    for st in steps:
+        if not (math.isfinite(st["loss"]) and math.isfinite(st["grad_norm"])
+                and st["grads_finite"]):
+            raise RuntimeError(f"gmldm_train: non-finite loss or gradients "
+                               f"{st}")
+    if steps[-1]["grad_norm"] <= 0:
+        raise RuntimeError("gmldm_train: no gradient reached the U-Net")
+    for name in ("flash_attn_fwd", "flash_attn_bwd"):
+        if launches[name] <= 0:
+            raise RuntimeError(f"{name} was not launched by gmldm_train")
+    seconds = [st["seconds"] for st in steps]
+    log(f"gmldm_train (GMLDMSystem.loss + backward, batch {GMLDM_BATCH} x 8 "
+        f"views at 256^2 from a LegacyMixingDataset) on {card}: "
+        f"StepTimer seconds, warm-up {seconds[0]:.3f}, then "
+        + "/".join(f"{x:.3f}" for x in seconds[1:])
+        + f" (EMA {timer.avg:.3f}); loss " + "/".join(
+            f"{st['loss']:.5g}" for st in steps) + "; grad_norm " + "/".join(
+            f"{st['grad_norm']:.5g}" for st in steps)
+        + f"; peak memory {peak / 2**30:.2f} GiB; launches in the last step "
+        f"{launches}; device_memory_stats {mem}")
+    del model, system, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(batch=GMLDM_BATCH, steps=steps, peak_bytes=peak,
+                launches=launches, memory_stats=mem)
+
+
+def phase_gmldm_tools(gaussians, card: str) -> dict:
+    """The small modules' CLIs: the GM-LDM scene exported to ``.ply`` and
+    ``python -m prometheus_torch.tools.view_scene`` on it (the HTML's size;
+    both files deleted after), and ``python -m prometheus_torch.tools.
+    compute_metrics`` on the eval phase's galleries (the BRISQUE and NIQE
+    proxies; its averages)."""
+    from prometheus_torch.utils.gs_io import export_ply
+
+    out_dir = LOG_DIR / "view_scene"
+    shutil.rmtree(out_dir, ignore_errors=True)
+    out_dir.mkdir(parents=True)
+    ply, html = out_dir / "gmldm_scene.ply", out_dir / "gmldm_scene.html"
+    n = export_ply(str(ply), [t.float().cpu() for t in gaussians])
+    t0 = time.perf_counter()
+    run = subprocess.run(
+        [sys.executable, "-m", "prometheus_torch.tools.view_scene", str(ply),
+         "--out", str(html)], cwd=ROOT, capture_output=True, text=True,
+        timeout=600)
+    view_s = time.perf_counter() - t0
+    if run.returncode != 0 or not html.is_file():
+        raise RuntimeError(f"view_scene failed: {run.stderr[-2000:]}")
+    html_bytes, ply_bytes = html.stat().st_size, ply.stat().st_size
+    embedded = "const EMBED_B64 = \"\";" not in html.read_text()
+    if not embedded:
+        raise RuntimeError("view_scene embedded no splats")
+    shutil.rmtree(out_dir)
+    gallery = LOG_DIR / "eval"
+    t0 = time.perf_counter()
+    run = subprocess.run(
+        [sys.executable, "-m", "prometheus_torch.tools.compute_metrics",
+         "--input_dir", str(gallery), "--device", "cpu"], cwd=ROOT,
+        capture_output=True, text=True, timeout=600)
+    metrics_s = time.perf_counter() - t0
+    if run.returncode != 0:
+        raise RuntimeError(f"compute_metrics failed: {run.stderr[-2000:]}")
+    avg = json.loads(run.stdout.strip().splitlines()[-1])
+    summary = json.loads((gallery / "all_metric.json").read_text())
+    if len(summary["per_prompt"]) != EVAL_PROMPTS or not all(
+            math.isfinite(avg[k]) for k in ("average_niqe",
+                                            "average_BRISQUE")):
+        raise RuntimeError(f"compute_metrics: {avg}")
+    log(f"view_scene on the GM-LDM scene's .ply ({n} gaussians, {ply_bytes} "
+        f"bytes) on {card}: {html_bytes} bytes of HTML in {view_s:.1f} s; "
+        f"compute_metrics over the eval galleries ({EVAL_PROMPTS} prompts, "
+        f"proxies) in {metrics_s:.1f} s: {avg}")
+    return dict(gaussians=n, ply_bytes=ply_bytes, html_bytes=html_bytes,
+                view_scene_s=view_s, compute_metrics_s=metrics_s,
+                compute_metrics=avg)
+
+
+def phase_train_gsdecoder_variants(seed: int, card: str, shapes: dict,
+                                   binning: dict) -> dict:
+    """Flagship stage-1 train steps of the GS decoder's two variants, built
+    through ``train.py``'s config path (``load_config`` with
+    ``experiment=gsdecoder_exp`` and ``gsdecoder.network.<flag>=false``,
+    ``config_settings``, ``build_gsdecoder_trainer``): no cross-view DiT
+    and no EMANorms. ``VARIANT_STEPS`` steps each on synthetic batches (the
+    batch drops to 2, then 1, only if 4 does not fit); step seconds, peak
+    memory, the launches of the last step (A, A-bwd, B and C must each be
+    > 0), finite loss and gradients, and kernels B and C held on the last
+    step's worklists and upstream gradients."""
+    import gc
+
+    import torch
+
+    from prometheus_torch.config import load_config
+    from prometheus_torch.train import build_gsdecoder_trainer, config_settings
+
+    out = {}
+    for name, flag in (("no_dit", "use_cross_view_dit"),
+                       ("no_ema", "use_ema_norm")):
+        path = f"train_gsdecoder_{name}"
+        settings = config_settings(load_config(overrides=[
+            "experiment=gsdecoder_exp", f"gsdecoder.network.{flag}=false"]),
+            "gsdecoder", small=False)
+        for batch in TRAIN_BATCHES:
+            t0 = time.perf_counter()
+            trainer = build_gsdecoder_trainer(device="cuda", seed=seed,
+                                              batch_size=batch,
+                                              overrides=settings)
+            marks, record, captured = instrument(trainer)
+            model = trainer.state.model
+            trained = {n: p for n, p in model.named_parameters()
+                       if not n.startswith(("vae.encoder", "vae.quant_conv"))}
+            torch.cuda.synchronize()
+            log(f"phase build {path}: {time.perf_counter() - t0:.1f} s, "
+                f"{sum(p.numel() for p in model.parameters()) / 1e9:.3f}B "
+                f"parameters (fp32), batch {batch}")
+            try:
+                res = run_train_steps(trainer, marks, record, trained,
+                                      VARIANT_STEPS, shapes, path)
+                stats = binning_stats(binning)
+                break
+            except torch.cuda.OutOfMemoryError as e:
+                log(f"{path} at batch {batch} does not fit in device "
+                    f"memory: {str(e).splitlines()[0]}")
+            forget_path(shapes, path)
+            trainer = marks = record = captured = model = trained = None
+            gc.collect()
+            torch.cuda.empty_cache()
+        else:
+            raise RuntimeError(f"{path} does not fit even at batch 1")
+        if flag == "use_cross_view_dit" and model.cross_view_dit is not None:
+            raise RuntimeError(f"{path}: the decoder holds a DiT")
+        if flag == "use_ema_norm" and list(model.buffers()):
+            raise RuntimeError(f"{path}: the decoder holds EMANorms")
+        for st in res["steps"]:
+            if not all(math.isfinite(st["metrics"][k])
+                       for k in ("loss", "grad_norm")):
+                raise RuntimeError(f"{path}: non-finite loss or grad_norm")
+        if not res["grads_finite"] or not res["moved"]:
+            raise RuntimeError(f"{path}: non-finite gradients or nothing "
+                               "moved")
+        for k, count in res["launches"].items():
+            if count <= 0:
+                raise RuntimeError(f"{k} was not launched by {path}")
+        log(f"{path} (stage 1, batch {batch} x (4 in + 4 novel views) at "
+            f"256^2, render 256^2) on {card}: step seconds " + "/".join(
+                f"{st['seconds']:.3f}" for st in res["steps"])
+            + "; loss " + "/".join(f"{st['metrics']['loss']:.5g}"
+                                   for st in res["steps"])
+            + f"; peak memory {res['peak'] / 2**30:.2f} GiB; launches in the "
+            f"last step {res['launches']}; csort_pairs_dropped "
+            f"{stats['csort_pairs_dropped']} of "
+            f"{stats['instances_needed']:.0f}; trained leaves moved "
+            f"{len(res['moved'])}/{res['n_trained']}")
+        c_args = captured["args"]
+        data, _, counts, grid_w, tpv, _ = c_args
+        check_b = check_composite_fwd(f"the {path} step's own worklists",
+                                      data, counts, grid_w, tpv)
+        check_c = check_composite_bwd(
+            f"the {path} step's own worklists and upstream gradients",
+            *c_args)
+        out[name] = dict(batch=batch, steps=res["steps"],
+                         peak_bytes=res["peak"], launches=res["launches"],
+                         csort=stats, composite_fwd=check_b,
+                         composite_bwd=check_c)
+        del trainer, marks, record, captured, model, trained, c_args, data
+        del counts
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     import gc
 
@@ -3874,6 +4384,23 @@ def main() -> int:
         seed=10)
     entry_a["on_new_shapes"] += fwd_rows
     entry_abwd["on_new_shapes"] += bwd_rows
+    # the legacy GM-LDM path, the small modules' CLIs, the GS decoder's
+    # variants, and A and A-bwd at the new shapes they recorded
+    gm = phase_gmldm_sample(SEED, card, shapes, binning)
+    gmldm_sample = gm["result"]
+    entry_b["on_gmldm_sample"] = gmldm_sample.pop("composite_fwd")
+    gmldm_train = phase_gmldm_train(SEED, card, shapes, gm.pop("text"),
+                                    gm.pop("tokenizer"))
+    gmldm_tools = phase_gmldm_tools(gm.pop("gaussians"), card)
+    variants = phase_train_gsdecoder_variants(SEED, card, shapes, binning)
+    for name, v in variants.items():
+        entry_b[f"on_train_gsdecoder_{name}"] = v.pop("composite_fwd")
+        entry_c[f"on_train_gsdecoder_{name}"] = v.pop("composite_bwd")
+    fwd_rows, bwd_rows = phase_new_attention_shapes(
+        shapes, (entry_a["on_new_shapes"], entry_abwd["on_new_shapes"]),
+        seed=12)
+    entry_a["on_new_shapes"] += fwd_rows
+    entry_abwd["on_new_shapes"] += bwd_rows
     snapshots = (disk["mvldm"]["snapshot_launches"],
                  disk["gsdecoder"]["snapshot_launches"],
                  disk["da2"]["snapshot_launches"],
@@ -3894,6 +4421,10 @@ def main() -> int:
              "train_disk_da2": disk["da2"]["launches"],
              "serve": serving["launches"],
              "serve_http": serving_http["launches"],
+             "gmldm_sample": gmldm_sample["launches"],
+             "gmldm_train": gmldm_train["launches"],
+             **{f"train_gsdecoder_{n}": v["launches"]
+                for n, v in variants.items()},
              "val_snapshot": {k: sum(c[k] for c in snapshots)
                               for k in snapshots[0]},
              **dist_inference["launches"],
@@ -3937,7 +4468,8 @@ def main() -> int:
              "on_train_mvldm_render_loss", "on_serve_batch",
              "launches_per_refine_iteration", "launches_per_orbit_video",
              "launches_per_serve_batch", "on_tile_band",
-             "psnr_vs_exact_db")
+             "psnr_vs_exact_db", "on_gmldm_sample",
+             "on_train_gsdecoder_no_dit", "on_train_gsdecoder_no_ema")
     entries = (entry_a, entry_b, entry_abwd, entry_c)
     kernels = [{k: e[k] for k in keys + extra if k in e} for e in entries]
     (LOG_DIR / "attention_shapes.json").write_text(json.dumps(dict(
@@ -3956,6 +4488,10 @@ def main() -> int:
         dist_2rank=dict(dist_2rank, ranks=[
             {k: v for k, v in o.items() if k != "shapes"}   # tuple keys
             for o in dist_2rank["ranks"]])), indent=1, default=str))
+    (LOG_DIR / "gmldm.json").write_text(json.dumps(dict(
+        gmldm_sample=gmldm_sample, gmldm_train=gmldm_train,
+        tools=gmldm_tools, gsdecoder_variants=variants), indent=1,
+        default=str))
     (LOG_DIR / "serve_checkpoint.json").write_text(json.dumps(dict(
         serve=serving, serve_http=serving_http, bundle=bundle,
         full_ckpt_layout=layout, final_ckpt=final_ckpt), indent=1,

@@ -297,7 +297,10 @@ def convert_bundle(towers: dict, pipe) -> dict:
     frozen ``model.decoder_2d.*`` copy the reference's decoder carries).
     The EMANorm ``magnitude_ema`` buffers count among the decoder's mapped
     tensors. The trained bundle already holds the MV-LDM's 15-channel
-    convs: no padding happens here.
+    convs: no padding happens here. A decoder built without the cross-view
+    DiT or the EMANorms takes the same tables, as in JAX: the checkpoint's
+    DiT tensors and magnitudes land in ``unassigned``, and a ``conv_in`` of
+    the DiT's width raises ``ValueError`` at ``vae/decoder/conv_in``.
     """
     from .weight_maps import (apply_weight_map, map_clip_text, map_ldm_unet,
                               map_ldm_vae, map_raydiff_dit, port_name)
@@ -352,7 +355,7 @@ def convert_bundle(towers: dict, pipe) -> dict:
         dst.copy_(val)
     m5, miss5, un5 = apply_weight_map(
         _strip_prefix(towers["decoder"], "model.cross_view_dit."),
-        map_raydiff_dit(gs.cross_view_dit.dit.depth), gs,
+        map_raydiff_dit(gs.dit_depth), gs,
         prefix="cross_view_dit/")
     gs_prefixes = ("model.vae.", "model.cross_view_dit.")
     report["decoder"] = {
@@ -409,7 +412,7 @@ def reference_bundle(pipe) -> dict:
                     "magnitude_ema"] = buf.float().cpu().clone()
     decoder.update({"model.cross_view_dit." + k: v
                     for k, v in reference_state_dict(
-                        gs, map_raydiff_dit(gs.cross_view_dit.dit.depth),
+                        gs, map_raydiff_dit(gs.dit_depth),
                         "cross_view_dit/").items()})
     own = dict(traj.named_parameters())
     depth = len({n.split(".")[0] for n in own if n.startswith("block_")})
@@ -501,6 +504,12 @@ def _read_bundle(path: str) -> dict:
     if not os.path.isfile(file):
         raise FileNotFoundError(f"no {BUNDLE_FILE} in {path}")
     return torch.load(file, map_location="cpu", weights_only=True, mmap=True)
+
+
+def bundle_tower(path: str, name: str) -> dict:
+    """The state dict (CPU) of one tower of the bundle directory ``path``:
+    ``mvldm``, ``gsdecoder`` or ``traj``."""
+    return _read_bundle(path)[name]
 
 
 def bundle_widths(path: str) -> dict:

@@ -42,8 +42,9 @@ The trainer reads from it every key that ``train.py`` reads
 (``config_settings``: ``seed``, ``output_dir``, the optimizer, EMA,
 precision, resume and loss keys of ``training``, the experiment's
 schedule, and without ``--small`` the networks of ``algorithm`` and
-``gsdecoder``), taking the dicts below where it sets none and refusing a
-value the port cannot honour; ``--seed`` and ``--batch_size`` win. Its
+``gsdecoder``, the GS decoder's ``use_cross_view_dit`` and
+``use_ema_norm`` variants among them), taking the dicts below where it
+sets none; ``--seed`` and ``--batch_size`` win. Its
 ``lpips_weights`` (a torch LPIPS + VGG16 checkpoint) gives
 ``--render_loss``'s LPIPS its weights. It tokenizes the captions, embeds
 them with the frozen CLIP text tower (stage 2), and makes the
@@ -607,7 +608,9 @@ _MVLDM_NETWORK_KEYS = {k: (k, int) for k in (
                                                 tuple),
                       "use_checkpoint": ("use_checkpoint", bool)}
 _GS_NETWORK_KEYS = {"latent_channel": ("latent_channel", int),
-                    "extra_latent_channel": ("extra_latent_channel", int)}
+                    "extra_latent_channel": ("extra_latent_channel", int),
+                    "use_cross_view_dit": ("use_cross_view_dit", bool),
+                    "use_ema_norm": ("use_ema_norm", bool)}
 _DIT_KEYS = {"hidden_size": ("dit_hidden_size", int),
              "depth": ("dit_depth", int),
              "num_heads": ("dit_num_heads", int),
@@ -627,8 +630,8 @@ def config_settings(cfg, stage: str, small: bool) -> dict:
     ``--small`` keeps at 2 + 2, and of stage 2 with its single-view images;
     ``output_dir``; the experiment's schedule; and without ``--small`` the
     networks of ``algorithm`` (stage 2, and the image size of both stages)
-    and ``gsdecoder`` (stage 1, and stage 2's rendering decoder)). Raises
-    on a value the port cannot honour."""
+    and ``gsdecoder`` (stage 1, and stage 2's rendering decoder), its
+    ``use_cross_view_dit`` and ``use_ema_norm`` among them)."""
     base = CONFIGS[(stage, small)]
     tr = cfg.get("training", {})
     out = _taken(tr, _TRAINING_KEYS)
@@ -662,12 +665,6 @@ def config_settings(cfg, stage: str, small: bool) -> dict:
         out["model"] = dict(base["model"], **net)
     gnet = (cfg.get("gsdecoder") or {}).get("network")
     if gnet:
-        for k in ("use_ema_norm", "use_cross_view_dit"):
-            if not gnet.get(k, True):
-                raise NotImplementedError(
-                    f"gsdecoder.network.{k}: false is not ported (the "
-                    "port's GS decoder has the EMA norm and the cross-view "
-                    "DiT)")
         gs = dict(_taken(gnet, _GS_NETWORK_KEYS),
                   **_taken(gnet.get("cross_view_dit"), _DIT_KEYS))
         key = "model" if stage == "gsdecoder" else "gsdecoder"

@@ -454,10 +454,12 @@ def test_t2i_annotation_formats_and_captions(tmp_path):
 
 
 def test_legacy_formats_refused():
+    """The legacy formats resolve by their names, dotted or not (their
+    parity with JAX is in ``test_torch_legacy_datasets.py``); an unknown
+    name is refused."""
     for name in ("CO3DDataset", "prometheus_torch.datasets.ShapeNetDataset",
                  "LegacyMixingDataset"):
-        with pytest.raises(NotImplementedError, match="not ported yet"):
-            tds.build_dataset({"module": name, "args": {}})
+        assert tds.get_dataset(name) is getattr(tds, name.rsplit(".")[-1])
     with pytest.raises(KeyError, match="unknown dataset"):
         tds.get_dataset("NoSuchDataset")
 

@@ -321,8 +321,7 @@ def test_config_settings_match_the_flagship_dicts(stage, overrides):
 
 def test_config_overrides_are_applied_or_refused(disk, tmp_path):
     """An override of a key the trainer reads changes the run (optimizer,
-    EMA, output_dir, micro-batches, networks); one it cannot honour
-    raises."""
+    EMA, output_dir, micro-batches, networks, the GS decoder's variants)."""
     out_dir = tmp_path / "out"
     trainer = main(["--stage", "gsdecoder", "--config", disk["cfg"],
                     "--override", f"data_root={disk['data']}",
@@ -344,8 +343,9 @@ def test_config_overrides_are_applied_or_refused(disk, tmp_path):
     assert got["model"]["model_channels"] == 64
     assert got["gsdecoder"]["dit_depth"] == 3 and got["high_noise"] is True
     assert got["batch_size"] == 16 and got["accumulate_grad_batches"] == 2
-    with pytest.raises(NotImplementedError, match="use_ema_norm"):
-        config_settings(load_config(DEFAULT_CONFIG, [
-            "gsdecoder.network.use_ema_norm=false"]), "gsdecoder", False)
+    for flag in ("use_ema_norm", "use_cross_view_dit"):
+        got = config_settings(load_config(DEFAULT_CONFIG, [
+            f"gsdecoder.network.{flag}=false"]), "gsdecoder", False)
+        assert got["model"][flag] is False
     assert config_settings(load_config(DEFAULT_CONFIG, [
         "lpips_weights=w.npz"]), "mvldm", False)["lpips_weights"] == "w.npz"
