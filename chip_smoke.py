@@ -189,13 +189,36 @@ Phases (any failure ends the script with a non-zero exit):
     seconds, peak memory, launches (all four > 0), finite loss, and B and C
     held on the last step's worklists; A and A-bwd held at every new shape
     these record;
-20. print the ``kernels`` JSON line (each kernel's ``launches`` from the
+20. the native data plane and the tools (``phase_tools``): the C++ library
+    built from ``prometheus_torch/native`` (its variant and
+    ``jpeg_available()``); ``raster_profile`` at its production defaults
+    (524,288 gaussians, 512^2, tile 16, capacity 1024; every stage's median
+    of 20 by CUDA events) with kernel B held on that run's own worklists;
+    ``stage1_eval`` at flagship GS-decoder width on a RE10K-format split
+    the run writes (2 scenes of 5 360x640 frames, its evaluation index and
+    ``build_metadata re10k-index``), B held on its worklists;
+    ``generate_depths`` (DA2-Small on phase 17's synthetic HF weights,
+    ``--size 518 --batch 8``) over a ``make_synthetic_scenes`` corpus (2
+    scenes of 8 720x960 frames); ``profile_train_step`` with every section
+    at flagship width and ``--trace``, the trace's kernels split by
+    ``parse_trace``; ``refine_width_study`` at its defaults; the sampler and
+    end-to-end quality studies with their training steps cut (printed as
+    ``reduced``); ``bench_loader`` for 5 s a path, native and Python, with
+    processes and threads; ``generate_captions --heuristic``,
+    ``dataset_gallery``, ``test_dataloader`` and ``paper_figures`` (its
+    three subcommands; the teaser over ``stage1_eval``'s scenes) once on
+    those corpora. Each tool's seconds, peak
+    memory, files and launches (counts set to 0 just before it, read just
+    after); A and A-bwd held at any new shape these record; the numbers in
+    ``build/chip_smoke/tools.json``;
+21. print the ``kernels`` JSON line (each kernel's ``launches`` from the
     path that runs it: ``generate`` without cameras for A and B, the train
     step for A-bwd and C, and every path's counts under
     ``launches_by_path``, the from-disk runs' warm steps and their
     snapshots (``val_snapshot``), image to 3D, eval and the DA2 run among
     them, the sharded paths, per rank, ``gmldm_sample``, ``gmldm_train``,
-    ``train_gsdecoder_no_dit`` and ``train_gsdecoder_no_ema``; B's and C's
+    ``train_gsdecoder_no_dit``, ``train_gsdecoder_no_ema`` and the tools'
+    ``tools_<name>``; B's and C's
     entries also hold their checks on the other worklists, B's its
     launches per orbit video,
     its check on a tile band and the ``psnr_vs_exact`` readings) and,
@@ -369,6 +392,16 @@ DIST_GUIDED_TOL = 6e-2
 GMLDM_STEPS, GMLDM_TRAIN_STEPS, GMLDM_BATCH = 4, 4, 4
 GMLDM_OBJECTS, GMLDM_VIEWS, GMLDM_T2I = 8, 12, 16
 VARIANT_STEPS = 3
+# phase 20, the tools: the DL3DV-layout corpus (scenes x 720x960 frames)
+# and the RE10K-format split (scenes x 360x640 frames, 2 of them context)
+# they run on; the quality studies' training steps, cut to fit the phase
+# (the JAX tools' defaults: 1500; 2000 and 1200); bench_loader's seconds a
+# path
+TOOLS_SCENES, TOOLS_FRAMES = 2, 8
+TOOLS_RE10K_SCENES, TOOLS_RE10K_FRAMES = 2, 5
+SAMPLER_STUDY_STEPS = 50
+E2E_STUDY_STEPS, E2E_STUDY_GS_STEPS = 50, 30
+BENCH_LOADER_SECONDS = 5
 
 
 def log(msg: str) -> None:
@@ -4278,6 +4311,387 @@ def phase_train_gsdecoder_variants(seed: int, card: str, shapes: dict,
     return out
 
 
+def write_re10k_corpus(root: Path, seed: int) -> dict:
+    """A RealEstate10K-format test split: ``TOOLS_RE10K_SCENES`` scenes of
+    ``TOOLS_RE10K_FRAMES`` textured 360x640 JPEG frames (RE10K's size) on
+    jittered orbits, pixelSplat chunk files of ``{key, images, cameras}``
+    (normalised intrinsics, OpenCV world-to-camera rows), one scene a
+    chunk, without ``index.json`` (``build_metadata re10k-index`` writes
+    it); and the evaluation index (2 context views, the frames between
+    them the targets)."""
+    import io
+
+    import numpy as np
+    import torch
+    from PIL import Image
+
+    from prometheus_torch.tools.make_synthetic_scenes import (orbit_poses,
+                                                              scene_image)
+
+    rng = np.random.default_rng(seed)
+    h, w, n = 360, 640, TOOLS_RE10K_FRAMES
+    f = 0.8 * w
+    root.mkdir(parents=True)
+    index = {}
+    for s in range(TOOLS_RE10K_SCENES):
+        key = f"re10k_{s:04d}"
+        palette = rng.uniform(0.2, 0.8, size=(3, 2)).astype(np.float32)
+        images = []
+        for i in range(n):
+            buf = io.BytesIO()
+            Image.fromarray(scene_image(rng, h, w, i / n + 0.3 * s,
+                                        palette)).save(buf, format="JPEG",
+                                                       quality=90)
+            images.append(torch.frombuffer(bytearray(buf.getvalue()),
+                                           dtype=torch.uint8))
+        c2w_cv = orbit_poses(n, 2.0 + 0.5 * s, rng) * np.asarray(
+            [1.0, -1.0, -1.0, 1.0])                   # OpenGL -> OpenCV
+        rows = []
+        for c2w in c2w_cv:
+            w2c = np.linalg.inv(np.vstack([c2w, [0.0, 0.0, 0.0, 1.0]]))[:3]
+            rows.append(np.concatenate([[f / w, f / h, 0.5, 0.5, 0.0, 0.0],
+                                        w2c.reshape(-1)]))
+        torch.save([{"key": key, "images": images,
+                     "cameras": torch.tensor(np.stack(rows),
+                                             dtype=torch.float32)}],
+                   root / f"{s:06d}.torch")
+        index[key] = {"context": [0, n - 1], "target": list(range(1, n - 1))}
+    (root.parent / "evaluation_index.json").write_text(json.dumps(index))
+    return index
+
+
+def files_of(path: Path) -> dict:
+    """The file ``path``, or the files under it: their count and bytes."""
+    path = Path(path)
+    files = [path] if path.is_file() else [
+        p for p in path.rglob("*") if p.is_file()]
+    return dict(files=len(files), bytes=sum(p.stat().st_size for p in files))
+
+
+def phase_tools(seed: int, card: str, shapes: dict) -> dict:
+    """Phase 20: the native data plane and every tool of
+    ``prometheus_torch/tools`` that phase 19 did not run, through their
+    ``main`` (or the function it calls) in this process, on corpora written
+    under ``build/chip_smoke/tools/``: ``raster_profile`` at its production
+    defaults with kernel B held on that run's own worklists,
+    ``stage1_eval`` at flagship GS-decoder width on a RE10K-format split
+    (B held on its worklists), ``generate_depths`` (DA2-Small on the
+    synthetic HF weights of phase 17, ``--size 518 --batch 8``),
+    ``profile_train_step`` with every section at flagship width and its
+    ``--trace``, split by ``parse_trace``, ``refine_width_study`` at its
+    defaults, the two quality studies at cut step counts, ``bench_loader``
+    native and Python, and the host tools (``make_synthetic_scenes``,
+    ``build_metadata re10k-index``, ``generate_captions --heuristic``,
+    ``dataset_gallery``, ``test_dataloader``, ``paper_figures``). Each
+    tool's seconds, the files it wrote and its launches (counts set to 0
+    just before it, read just after) are printed; any failed check ends
+    the run."""
+    import gc
+
+    import numpy as np
+    import torch
+
+    from prometheus_torch import native
+    from prometheus_torch.tools import (bench_loader, build_metadata,
+                                        dataset_gallery, e2e_quality_study,
+                                        generate_captions, generate_depths,
+                                        make_synthetic_scenes, paper_figures,
+                                        parse_trace, profile_train_step,
+                                        raster_profile, refine_width_study,
+                                        sampler_quality_study, stage1_eval)
+    from prometheus_torch.tools import test_dataloader as tool_dataloader
+
+    root = LOG_DIR / "tools"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    out = {"tools": {}, "launches": {}}
+    t_phase = time.perf_counter()
+
+    def run(name, fn, outputs=(), card_path=True):
+        """``fn()`` timed; on the card its launches and attention shapes
+        are recorded under ``tools_<name>``."""
+        gc.collect()
+        torch.cuda.empty_cache()
+        path = f"tools_{name}"
+        if card_path:
+            shapes["path"] = path
+            zero_counts()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        try:
+            res = fn()
+            torch.cuda.synchronize()
+        finally:
+            shapes["path"] = None
+        seconds = time.perf_counter() - t0
+        rec = dict(seconds=seconds,
+                   peak_bytes=torch.cuda.max_memory_allocated(),
+                   outputs={str(Path(p).relative_to(ROOT)): files_of(p)
+                            for p in outputs})
+        if card_path:
+            rec["launches"] = out["launches"][path] = read_counts()
+        for p, f in rec["outputs"].items():
+            if f["files"] == 0:
+                raise RuntimeError(f"{name} wrote no file under {p}")
+        out["tools"][name] = rec
+        log(f"tool {name} on {card}: {seconds:.2f} s, peak "
+            f"{rec['peak_bytes'] / 2**30:.2f} GiB, files "
+            + (", ".join(f"{p} {f['files']} ({f['bytes']} bytes)"
+                         for p, f in rec["outputs"].items()) or "none")
+            + (f", launches {rec['launches']}" if card_path else ""))
+        return res
+
+    # the data plane: built here, its variant, and the fused JPEG path
+    t0 = time.perf_counter()
+    lib = native.build()
+    out["native"] = dict(library=lib.name, jpeg=native.jpeg_available(),
+                         build_s=time.perf_counter() - t0)
+    log(f"native data plane: {lib.name}, jpeg_available() "
+        f"{native.jpeg_available()}")
+
+    # --- the render by stage at production density, B on its worklists -
+    held, restore = hold_compositor_args()
+    try:
+        raster, _ = run("raster_profile", lambda: raster_profile.profile(
+            device="cuda", seed=seed, log=lambda msg: None))
+    finally:
+        restore()
+    t = raster["timings_ms"]
+    if not all(math.isfinite(v) and v > 0 for v in t.values()):
+        raise RuntimeError(f"raster_profile: {t}")
+    if out["launches"]["tools_raster_profile"]["composite_fwd"] <= 0:
+        raise RuntimeError("raster_profile launched no kernel B")
+    log(f"raster_profile ({raster['n_gaussians']} gaussians, "
+        f"{raster['size']}^2, tile {raster['tile_size']}, capacity "
+        f"{raster['capacity']}, median of {raster['reps']} by CUDA events) "
+        f"on {card}: " + ", ".join(f"{k} {v:.3f}" for k, v in t.items())
+        + f"; {raster['candidates']} candidates, {raster['candidates_live']} "
+        f"live, {raster['instances_kept']} kept, "
+        f"{raster['tiles_at_capacity']} tiles at capacity; JAX keys -> "
+        f"stages {raster['jax_keys']}; no counterpart: "
+        f"{raster['jax_keys_without_counterpart']}")
+    out["raster_profile"] = raster
+    out["composite_fwd_on_raster_profile"] = check_composite_fwd(
+        "raster_profile's render worklists", *held["args"])
+    del held
+
+    # --- the corpora: DL3DV-layout scenes and a RE10K-format split ------
+    scenes = root / "scenes"
+    run("make_synthetic_scenes", lambda: make_synthetic_scenes.main([
+        "--out", str(scenes), "--scenes", str(TOOLS_SCENES), "--frames",
+        str(TOOLS_FRAMES), "--seed", str(seed)]), [scenes], False)
+    re10k = root / "re10k" / "test"
+    index = write_re10k_corpus(re10k, seed)
+    run("build_metadata", lambda: build_metadata.main([
+        "re10k-index", "--root", str(re10k)]), [re10k], False)
+    if set(json.loads((re10k / "index.json").read_text())) != set(index):
+        raise RuntimeError("build_metadata re10k-index: wrong scenes")
+
+    # --- stage-1 evaluation at flagship width, B on its worklists -------
+    eval_dir = root / "stage1_eval"
+    held, restore = hold_compositor_args()
+    try:
+        summary = run("stage1_eval", lambda: stage1_eval.main([
+            "--data_root", str(re10k), "--eval_index",
+            str(re10k.parent / "evaluation_index.json"), "--out",
+            str(eval_dir)]), [eval_dir])
+    finally:
+        restore()
+    if summary["num_scenes"] != TOOLS_RE10K_SCENES or not all(
+            math.isfinite(r[k]) for r in summary["per_scene"]
+            for k in ("psnr", "ssim")):
+        raise RuntimeError(f"stage1_eval: {summary}")
+    log(f"stage1_eval (GS decoder at flagship width, float32; "
+        f"{TOOLS_RE10K_SCENES} scenes x 2 context + "
+        f"{TOOLS_RE10K_FRAMES - 2} target views at 256^2): psnr "
+        f"{summary['psnr_mean']:.3f} ssim {summary['ssim_mean']:.4f} "
+        "(random weights: well-formed, not meaningful)")
+    out["stage1_eval"] = summary
+    out["composite_fwd_on_stage1_eval"] = check_composite_fwd(
+        "stage1_eval's render worklists", *held["args"])
+    del held
+
+    # --- DA2 depths at 518, batch 8 -------------------------------------
+    weights = LOG_DIR / "da2_synthetic.pt"
+    if not weights.is_file():
+        write_da2_weights(weights, seed)
+    depth_dir = root / "depths"
+    depths = run("generate_depths", lambda: generate_depths.main([
+        "--root", str(scenes), "--annotation",
+        str(scenes / "annotation.pkl"), "--out", str(depth_dir),
+        "--weights", str(weights), "--size", "518", "--batch", "8"]),
+        [depth_dir])
+    first = np.load(depth_dir / "scene_0000" / "frame_000.npy")
+    if depths["frames"] != TOOLS_SCENES * TOOLS_FRAMES or first.shape != (
+            518, 518) or not np.isfinite(first.astype(np.float32)).all():
+        raise RuntimeError(f"generate_depths: {depths}, {first.shape}")
+
+    # --- the stage-2 step by section, its trace and the trace's top ops -
+    trace_dir = root / "train_step_trace"
+    sections = run("profile_train_step", lambda: profile_train_step.profile(
+        small=False, iters=10, sections=profile_train_step.SECTIONS,
+        device="cuda", trace=str(trace_dir)), [trace_dir])
+    timed = {k: v for k, v in sections.items() if k.endswith("_ms")}
+    if not all(isinstance(v, float) and v > 0 for v in timed.values()):
+        raise RuntimeError(f"profile_train_step: {timed}")
+    log(f"profile_train_step (flagship MV-LDM, batch 1 x 8 views at 256^2, "
+        f"bf16 autocast; median [least, most] of {sections['iters']} by "
+        f"CUDA events) on {card}: " + ", ".join(
+            f"{k} {v:.2f} [{sections['spread'][k][0]:.2f}, "
+            f"{sections['spread'][k][1]:.2f}]" for k, v in timed.items())
+        + f"; peak {sections['peak_bytes'] / 2**30:.2f} GiB")
+    out["profile_train_step"] = sections
+    summary = run("parse_trace", lambda: parse_trace.summarize(
+        sections["trace"], top=10**6, plane="device", line="kernel"),
+        card_path=False)
+    if not summary:
+        raise RuntimeError("parse_trace found no kernel on a device stream")
+    by_class, busy = {}, 0.0
+    for plane, lines in summary.items():
+        busy += lines["kernel"]["busy_ms"]
+        for name, ms, _ in lines["kernel"]["top"]:
+            cls = kernel_class(name)
+            by_class[cls] = by_class.get(cls, 0.0) + ms
+        log(f"parse_trace {plane}: {lines['kernel']['events']} kernels, busy "
+            f"{lines['kernel']['busy_ms']:.2f} ms, span "
+            f"{lines['kernel']['span_ms']:.2f} ms; top: " + "; ".join(
+                f"{ms:.2f} ms x{n} {name[:60]}"
+                for name, ms, n in lines["kernel"]["top"][:8]))
+    log(f"parse_trace of one traced step, device ms by class (busy "
+        f"{busy:.2f}): " + ", ".join(
+            f"{k} {v:.2f}" for k, v in sorted(by_class.items(),
+                                              key=lambda kv: -kv[1])))
+    out["parse_trace"] = dict(busy_ms=busy, by_class_ms=by_class,
+                              planes={p: {k: v for k, v in lines["kernel"]
+                                          .items() if k != "top"}
+                                      for p, lines in summary.items()},
+                              top=[r for lines in summary.values()
+                                   for r in lines["kernel"]["top"][:20]])
+
+    # --- MV-SDS++ at widths 0.25, 0.5, 1.0 ------------------------------
+    study = run("refine_width_study", lambda: refine_width_study.main([
+        "--out", str(root / "refine_width_study.json")]),
+        [root / "refine_width_study.json"])
+    bad = [r for r in study["widths"] if not r.get("finite")]
+    if bad or not study["flagship_ok"]:
+        raise RuntimeError(f"refine_width_study: {bad}")
+    for r in study["widths"]:
+        log(f"refine_width_study width {r['width_frac']} (model_channels "
+            f"{r['model_channels']}; {r['n_gaussians']} gaussians, "
+            f"{r['views_per_iter']} views at {r['img_size']}^2): build "
+            f"{r['init_s']:.2f} s, iterations (s) " + "/".join(
+                f"{s:.3f}" for s in r["per_iter_s"]))
+    # the VAE mid block at widths 0.25 and 0.5 (vae_ch 32, 64) goes through
+    # A and A-bwd at D = 128 and 256
+    for kind in ("fwd", "bwd"):
+        dims = {s[-1] for s, p in shapes[kind].items()
+                if "tools_refine_width_study" in p}
+        if not {128, 256} <= dims:
+            raise RuntimeError(f"refine_width_study: kernel A {kind} met "
+                               f"head dims {sorted(dims)}, not 128 and 256")
+    out["refine_width_study"] = study
+
+    # --- the quality studies, their steps cut ---------------------------
+    log(f"reduced: sampler_quality_study --train_steps "
+        f"{SAMPLER_STUDY_STEPS} (default 1500); e2e_quality_study "
+        f"--train_steps {E2E_STUDY_STEPS} --gs_train_steps "
+        f"{E2E_STUDY_GS_STEPS} (defaults 2000, 1200); widths, samplers "
+        "and reference steps as the tools' defaults")
+    sq = run("sampler_quality_study", lambda: sampler_quality_study.main([
+        "--train_steps", str(SAMPLER_STUDY_STEPS), "--out",
+        str(root / "sampler_quality_study.json")]),
+        [root / "sampler_quality_study.json"])
+    e2e = run("e2e_quality_study", lambda: e2e_quality_study.main([
+        "--train_steps", str(E2E_STUDY_STEPS), "--gs_train_steps",
+        str(E2E_STUDY_GS_STEPS), "--out",
+        str(root / "e2e_quality_study.json")]),
+        [root / "e2e_quality_study.json"])
+    if not (sq["loss_last"] < sq["loss_first"] and all(
+            r["latent_psnr_db"] is not None for r in sq["samplers"])):
+        raise RuntimeError(f"sampler_quality_study: {sq}")
+    if not all(r["render_psnr_db"] is not None for r in e2e["e2e"]):
+        raise RuntimeError(f"e2e_quality_study: {e2e}")
+    log(f"sampler_quality_study: eval loss {sq['loss_first']:.4f} -> "
+        f"{sq['loss_last']:.4f} over {sq['train_steps']} steps; against "
+        f"{sq['ref_sampler']}: " + "; ".join(
+            f"{r['sampler']}@{r['steps']} latent {r['latent_psnr_db']} dB "
+            f"image {r['image_psnr_db']} dB" for r in sq["samplers"]))
+    log(f"e2e_quality_study: stage 1 eval loss "
+        f"{e2e['stage1']['final_eval_loss']:.4f}, stage 2 novel-view psnr "
+        f"{e2e['stage2']['final_novel_view_psnr_db']} dB; renders "
+        + "; ".join(f"{r['sampler']}@{r['steps']} {r['render_psnr_db']} dB"
+                    for r in e2e["e2e"])
+        + f"; oracle {e2e['oracle_stage2_render_psnr_db']} dB")
+    out["sampler_quality_study"], out["e2e_quality_study"] = sq, e2e
+
+    # --- the host tools ------------------------------------------------
+    rates = run("bench_loader", lambda: bench_loader.main([
+        "--root", str(scenes), "--seconds", str(BENCH_LOADER_SECONDS),
+        "--repeats", "1"]), card_path=False)
+    if not all(rates[f"images_per_s_{p}{k}"] > 0 for p in ("native", "python")
+               for k in ("", "_threads")):
+        raise RuntimeError(f"bench_loader: {rates}")
+    log(f"bench_loader ({BENCH_LOADER_SECONDS} s a path, 720x960 JPEGs -> "
+        f"256^2, 8 views, batch 4, 4 workers) on this card's host: native "
+        f"{rates['images_per_s_native']:.1f} images/s with processes, "
+        f"{rates['images_per_s_native_threads']:.1f} with threads; Python "
+        f"{rates['images_per_s_python']:.1f} / "
+        f"{rates['images_per_s_python_threads']:.1f}; native speedup "
+        f"{rates['native_speedup']:.2f}; jpeg {rates['jpeg_native']}")
+    out["bench_loader"] = rates
+    captions = root / "captions"
+    run("generate_captions", lambda: generate_captions.main([
+        "--root", str(scenes), "--annotation", str(scenes / "annotation.pkl"),
+        "--out", str(captions), "--heuristic"]), [captions], False)
+    gallery = root / "gallery"
+    run("dataset_gallery", lambda: dataset_gallery.main([
+        "--root", str(scenes), "--annotation", str(scenes / "annotation.pkl"),
+        "--num_scenes", str(TOOLS_SCENES), "--out", str(gallery)]),
+        [gallery], False)
+    loader_dir = root / "dataloader"
+    scenes_s = run("test_dataloader", lambda: tool_dataloader.main([
+        "--root", str(scenes), "--annotation", str(scenes / "annotation.pkl"),
+        "--batch_size", str(TOOLS_SCENES), "--num_batches", "1", "--out",
+        str(loader_dir)]), [loader_dir], False)
+    out["test_dataloader_scenes_per_s"] = scenes_s
+    figures = root / "figures"
+    panel = figures / "scene"
+    for sub, prefix in (("inputs", "gt"), ("renders", "pred")):
+        (panel / sub).mkdir(parents=True)
+        for p in sorted((eval_dir / "re10k_0000").glob(f"{prefix}_*.png")):
+            shutil.copy(p, panel / sub / p.name)
+    (panel / "depth").mkdir()
+    np.save(panel / "depth" / "000000.npy", first.astype(np.float32))
+    webp = figures / "webp"
+    webp.mkdir()
+    from PIL import Image, features
+
+    has_webp = features.check("webp")
+    if has_webp:
+        for p in sorted(scenes.glob("scene_0000/frame_00[0-1].jpg")):
+            Image.open(p).save(webp / f"{p.stem}.webp")
+    else:
+        log("paper_figures convert: this PIL has no WebP codec, skipped")
+
+    def figures_all():
+        paper_figures.main(["figure", "--scene_dir", str(panel), "--out",
+                            str(figures / "stage_figure.png")])
+        paper_figures.main(["teaser", "--gallery_dir", str(eval_dir),
+                            "--out", str(figures / "teaser.png")])
+        if has_webp:
+            paper_figures.main(["convert", "--src", str(webp), "--dst",
+                                str(figures / "jpg")])
+
+    run("paper_figures", figures_all, [figures], False)
+    wanted = ["stage_figure.png", "teaser.png"] + (
+        ["jpg/frame_000.jpg"] if has_webp else [])
+    if not all((figures / f).is_file() for f in wanted):
+        raise RuntimeError("paper_figures wrote too few files")
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"phase tools: {out['seconds']:.1f} s")
+    return out
+
+
 def main() -> int:
     import gc
 
@@ -4401,6 +4815,17 @@ def main() -> int:
         seed=12)
     entry_a["on_new_shapes"] += fwd_rows
     entry_abwd["on_new_shapes"] += bwd_rows
+    # the native data plane and the tools, and A and A-bwd at the new
+    # shapes they recorded
+    tools = phase_tools(SEED, card, shapes)
+    entry_b["on_raster_profile"] = tools.pop(
+        "composite_fwd_on_raster_profile")
+    entry_b["on_stage1_eval"] = tools.pop("composite_fwd_on_stage1_eval")
+    fwd_rows, bwd_rows = phase_new_attention_shapes(
+        shapes, (entry_a["on_new_shapes"], entry_abwd["on_new_shapes"]),
+        seed=14)
+    entry_a["on_new_shapes"] += fwd_rows
+    entry_abwd["on_new_shapes"] += bwd_rows
     snapshots = (disk["mvldm"]["snapshot_launches"],
                  disk["gsdecoder"]["snapshot_launches"],
                  disk["da2"]["snapshot_launches"],
@@ -4427,6 +4852,7 @@ def main() -> int:
                 for n, v in variants.items()},
              "val_snapshot": {k: sum(c[k] for c in snapshots)
                               for k in snapshots[0]},
+             **tools["launches"],
              **dist_inference["launches"],
              **{f"{p}_step": dist_train[p]["launches"]
                 for p in ("dp", "fsdp", "sp_views")},
@@ -4469,7 +4895,8 @@ def main() -> int:
              "launches_per_refine_iteration", "launches_per_orbit_video",
              "launches_per_serve_batch", "on_tile_band",
              "psnr_vs_exact_db", "on_gmldm_sample",
-             "on_train_gsdecoder_no_dit", "on_train_gsdecoder_no_ema")
+             "on_train_gsdecoder_no_dit", "on_train_gsdecoder_no_ema",
+             "on_raster_profile", "on_stage1_eval")
     entries = (entry_a, entry_b, entry_abwd, entry_c)
     kernels = [{k: e[k] for k in keys + extra if k in e} for e in entries]
     (LOG_DIR / "attention_shapes.json").write_text(json.dumps(dict(
@@ -4492,6 +4919,8 @@ def main() -> int:
         gmldm_sample=gmldm_sample, gmldm_train=gmldm_train,
         tools=gmldm_tools, gsdecoder_variants=variants), indent=1,
         default=str))
+    (LOG_DIR / "tools.json").write_text(json.dumps(tools, indent=1,
+                                                   default=str))
     (LOG_DIR / "serve_checkpoint.json").write_text(json.dumps(dict(
         serve=serving, serve_http=serving_http, bundle=bundle,
         full_ckpt_layout=layout, final_ckpt=final_ckpt), indent=1,

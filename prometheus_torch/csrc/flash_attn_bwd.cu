@@ -70,6 +70,11 @@
 // (16, 1024, 1, 512), whose round trip (~128 MB) costs ~0.04 ms at 3.35
 // TB/s against a 0.087 ms compute floor. The caller sizes G (batch*head
 // pairs a group); larger calls run phases 2 and 3 group by group.
+//
+// D = 128 and 256 (the VAE mid blocks of width-scaled models) run the same
+// two phases: phase 2 takes D / 64 TMA steps, and phase 3 writes 256 output
+// columns a block at D = 256 and 128 (two m64n64 accumulators a consumer)
+// at D = 128.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -432,7 +437,7 @@ int launch_main(const bf16* q, const bf16* k, const bf16* v, const bf16* o,
   return int(cudaGetLastError());
 }
 
-// ---------------------------------------------------------------- D = 512
+// ------------------------------------------------------ D = 128, 256, 512
 
 constexpr int kT = 128;             // query rows and keys of a score tile
 constexpr uint32_t kBox = 64 * 128;  // bytes of a 64-row, 64-column box
@@ -448,13 +453,14 @@ struct ScoreLayout {
 };
 
 // Phase 2 stage: 64 rows of the reduction of the A operand (two 64 x 64
-// boxes of the P or dS scratch) and of the B operand (four 64-column boxes
-// of dO, Q or K: 256 output columns)
+// boxes of the P or dS scratch) and of the B operand (NB 64-column boxes of
+// dO, Q or K: 64 NB output columns)
+template <int NB>
 struct GradLayout {
   static constexpr int kStages = 4;
   static constexpr uint32_t a = 0, b = 2 * kBox;
-  static constexpr uint32_t stage = 6 * kBox;
-  static constexpr uint32_t bar = kStages * stage;                 // 192 KB
+  static constexpr uint32_t stage = (2 + NB) * kBox;
+  static constexpr uint32_t bar = kStages * stage;                 // 192 KB at NB = 4
   static constexpr uint32_t bytes = bar + 8 * 2 * kStages + 1024;
 };
 
@@ -483,10 +489,11 @@ __device__ __forceinline__ void score_step(float (&sc)[64], float (&dp)[64],
 }
 
 // Phase 1: one block per (128 keys, 128 query rows, batch*head of the
-// group). S = Q K^T and dP = dO V^T by wgmma over the 512-column depth in 8
-// TMA steps of 64 columns; the epilogue writes P = exp2(S scale log2 e - lse
-// log2 e) and dS = P (dP - D_i) as bf16 rows (query, key) of the group's
-// (G, T, T) scratch.
+// group). S = Q K^T and dP = dO V^T by wgmma over the D-column depth in
+// D / 64 TMA steps of 64 columns; the epilogue writes P = exp2(S scale log2
+// e - lse log2 e) and dS = P (dP - D_i) as bf16 rows (query, key) of the
+// group's (G, T, T) scratch.
+template <int D>
 __global__ void __launch_bounds__(kMainThreads, 1)
 flash_bwd512_scores_kernel(const __grid_constant__ CUtensorMap mq,
                            const __grid_constant__ CUtensorMap mk,
@@ -503,7 +510,7 @@ flash_bwd512_scores_kernel(const __grid_constant__ CUtensorMap mq,
   uint64_t* empty = full + L::kStages;
   const int k0 = blockIdx.x * kT, q0 = blockIdx.y * kT, g = blockIdx.z;
   const int bh = bh0 + g, b = bh / H, h = bh % H;
-  constexpr int kSteps = 512 / 64;
+  constexpr int kSteps = D / 64;
   if (threadIdx.x == 0) {
     for (int s = 0; s < L::kStages; ++s) {
       mbar_init(full + s, 1);
@@ -572,20 +579,20 @@ flash_bwd512_scores_kernel(const __grid_constant__ CUtensorMap mq,
   }
 }
 
-// acc (64 x 256) += A (64 x 64) B (64 x 256) over one stage: A is this
+// acc (64 x 64 NB) += A (64 x 64) B (64 x 64 NB) over one stage: A is this
 // warpgroup's box of the stage, K-major (TA = 0: dS rows, for dQ) or
-// MN-major (TA = 1: P or dS read as P^T or dS^T, for dV and dK); B is four
+// MN-major (TA = 1: P or dS read as P^T or dS^T, for dV and dK); B is NB
 // MN-major 64-column boxes
-template <int TA, bool ACC>
-__device__ __forceinline__ void grad_step(float (&acc)[4][32], const unsigned char* st,
+template <int NB, int TA, bool ACC>
+__device__ __forceinline__ void grad_step(float (&acc)[NB][32], const unsigned char* st,
                                           int w) {
-  using L = GradLayout;
+  using L = GradLayout<NB>;
   const uint64_t ad = desc(st + L::a + w * kBox, 16, 1024, kSw128);
 #pragma unroll
   for (int kk = 0; kk < 4; ++kk) {
     const uint64_t a = advance(ad, TA ? 2048 * kk : 32 * kk);
 #pragma unroll
-    for (int n = 0; n < 4; ++n) {
+    for (int n = 0; n < NB; ++n) {
       const uint64_t bd = advance(desc(st + L::b + n * kBox, 16, 1024, kSw128), 2048 * kk);
       if (ACC || kk > 0)
         mma_ss_n64<TA, 1, true>(acc[n], a, bd);
@@ -595,36 +602,37 @@ __device__ __forceinline__ void grad_step(float (&acc)[4][32], const unsigned ch
   }
 }
 
-template <int TA>
-__device__ __forceinline__ void grad_mainloop(float (&acc)[4][32], unsigned char* smem,
+template <int NB, int TA>
+__device__ __forceinline__ void grad_mainloop(float (&acc)[NB][32], unsigned char* smem,
                                               uint64_t* full, uint64_t* empty, int steps,
                                               int w) {
-  using L = GradLayout;
+  using L = GradLayout<NB>;
   mbar_wait(full, 0);
   wgmma_fence();
-  grad_step<TA, false>(acc, smem, w);
+  grad_step<NB, TA, false>(acc, smem, w);
   wgmma_commit();
   for (int i = 1; i < steps; ++i) {
     const int s = i % L::kStages;
     mbar_wait(full + s, (i / L::kStages) & 1);
     wgmma_fence();
-    grad_step<TA, true>(acc, smem + s * L::stage, w);
+    grad_step<NB, TA, true>(acc, smem + s * L::stage, w);
     wgmma_commit();
     wgmma_wait<1>();  // the step before is done: its stage is free
     mbar_arrive(empty + (i - 1) % L::kStages);
   }
   wgmma_wait();
 #pragma unroll
-  for (int n = 0; n < 4; ++n) fence_regs(acc[n]);
+  for (int n = 0; n < NB; ++n) fence_regs(acc[n]);
 }
 
-// Phase 2: one block per (128 output rows, product and 256 output columns,
-// batch*head of the group), one batched GEMM for three products:
+// Phase 2: one block per (128 output rows, product and 64 NB output
+// columns, batch*head of the group), one batched GEMM for three products:
 //   dV = P^T dO, dK = scale dS^T Q (rows: keys), dQ = scale dS K (rows:
 //   queries),
-// each 128 x 256 of (T x 512) with a T-deep reduction in 64-row TMA steps;
+// each 128 x 64 NB of (T x D) with a T-deep reduction in 64-row TMA steps;
 // the transposed scratch operands are read through wgmma's transpose bit.
 // Writes bf16 in BTNH.
+template <int D, int NB>
 __global__ void __launch_bounds__(kMainThreads, 1)
 flash_bwd512_grads_kernel(const __grid_constant__ CUtensorMap mp,
                           const __grid_constant__ CUtensorMap mds,
@@ -633,12 +641,14 @@ flash_bwd512_grads_kernel(const __grid_constant__ CUtensorMap mp,
                           const __grid_constant__ CUtensorMap mdo,
                           bf16* __restrict__ dq, bf16* __restrict__ dk,
                           bf16* __restrict__ dv, int T, int H, int bh0, float scale) {
-  using L = GradLayout;
+  using L = GradLayout<NB>;
+  constexpr int kParts = D / (64 * NB);  // blocks of output columns a product
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = align1024(smem_raw);
   uint64_t* full = reinterpret_cast<uint64_t*>(smem + L::bar);
   uint64_t* empty = full + L::kStages;
-  const int m0 = blockIdx.x * kT, which = blockIdx.y / 2, n0 = (blockIdx.y % 2) * 256;
+  const int m0 = blockIdx.x * kT, which = blockIdx.y / kParts;
+  const int n0 = (blockIdx.y % kParts) * 64 * NB;
   const int g = blockIdx.z, bh = bh0 + g, b = bh / H, h = bh % H;
   const int steps = T / 64;
   if (threadIdx.x == 0) {
@@ -670,7 +680,7 @@ flash_bwd512_grads_kernel(const __grid_constant__ CUtensorMap mp,
             tma_load_4d(st + L::a + j * kBox, ma, full + s, r0, 0, m0 + 64 * j, g);
         }
 #pragma unroll
-        for (int n = 0; n < 4; ++n)
+        for (int n = 0; n < NB; ++n)
           tma_load_4d(st + L::b + n * kBox, mb, full + s, n0 + 64 * n, h, r0, b);
       }
     }
@@ -678,17 +688,17 @@ flash_bwd512_grads_kernel(const __grid_constant__ CUtensorMap mp,
     reg_alloc<232>();
     const int w = threadIdx.x / 128, t = threadIdx.x % 128;
     const int r0 = 16 * (t / 32) + (t % 32) / 4, cq = 2 * (t % 4);
-    float acc[4][32];
+    float acc[NB][32];
     if (which < 2)
-      grad_mainloop<1>(acc, smem, full, empty, steps, w);
+      grad_mainloop<NB, 1>(acc, smem, full, empty, steps, w);
     else
-      grad_mainloop<0>(acc, smem, full, empty, steps, w);
+      grad_mainloop<NB, 0>(acc, smem, full, empty, steps, w);
     bf16* out = which == 0 ? dv : which == 1 ? dk : dq;
     const float f = which == 0 ? 1.f : scale;
-    const size_t row_stride = size_t(H) * 512;
-    bf16* row = out + (size_t(b) * T * H + h) * 512 + size_t(m0 + 64 * w + r0) * row_stride + n0;
+    const size_t row_stride = size_t(H) * D;
+    bf16* row = out + (size_t(b) * T * H + h) * D + size_t(m0 + 64 * w + r0) * row_stride + n0;
 #pragma unroll
-    for (int n = 0; n < 4; ++n)
+    for (int n = 0; n < NB; ++n)
 #pragma unroll
       for (int j = 0; j < 32; j += 2) {
         const int r = (j >> 1) & 1, c = 64 * n + 8 * (j / 4) + cq;
@@ -698,14 +708,17 @@ flash_bwd512_grads_kernel(const __grid_constant__ CUtensorMap mp,
   }
 }
 
-// D = 512 in groups of `group` batch*head pairs: the D_i pre-pass, then per
-// group phase 1 into the bf16 scratch (P, then dS: 2 x group x T x T) and
-// phase 2 out of it.
+// D = 128, 256 or 512 in groups of `group` batch*head pairs: the D_i
+// pre-pass, then per group phase 1 into the bf16 scratch (P, then dS: 2 x
+// group x T x T) and phase 2 out of it.
+template <int D>
 int launch_512(const bf16* q, const bf16* k, const bf16* v, const bf16* o,
                const float* lse, const bf16* dout, float* delta, bf16* scratch,
                bf16* dq, bf16* dk, bf16* dv, int B, int T, int H, int group,
                float scale, cudaStream_t s) {
-  constexpr int D = 512;
+  constexpr int NB = D < 256 ? D / 64 : 4;  // 64-column boxes a phase-2 block
+  auto scores = flash_bwd512_scores_kernel<D>;
+  auto grads = flash_bwd512_grads_kernel<D, NB>;
   if (T % kT != 0 || scratch == nullptr || group <= 0) return int(cudaErrorInvalidValue);
   cudaError_t err = launch_delta(o, dout, delta, B, T, H, D, s);
   if (err != cudaSuccess) return int(err);
@@ -729,17 +742,16 @@ int launch_512(const bf16* q, const bf16* k, const bf16* v, const bf16* o,
                            CU_TENSOR_MAP_SWIZZLE_128B);
     if (e != 0) return e;
   }
-  if ((err = prepare(flash_bwd512_scores_kernel, ScoreLayout::bytes)) != cudaSuccess ||
-      (err = prepare(flash_bwd512_grads_kernel, GradLayout::bytes)) != cudaSuccess)
+  if ((err = prepare(scores, ScoreLayout::bytes)) != cudaSuccess ||
+      (err = prepare(grads, GradLayout<NB>::bytes)) != cudaSuccess)
     return int(err);
   const float scale_log2 = scale * kLog2e;
   for (int bh0 = 0; bh0 < B * H; bh0 += group) {
     const int n = B * H - bh0 < group ? B * H - bh0 : group;
-    flash_bwd512_scores_kernel<<<dim3(T / kT, T / kT, n), kMainThreads, ScoreLayout::bytes,
-                                 s>>>(m1[0], m1[1], m1[2], m1[3], lse, delta, p_scr, ds_scr,
-                                      T, H, bh0, scale_log2);
+    scores<<<dim3(T / kT, T / kT, n), kMainThreads, ScoreLayout::bytes, s>>>(
+        m1[0], m1[1], m1[2], m1[3], lse, delta, p_scr, ds_scr, T, H, bh0, scale_log2);
     if ((err = cudaGetLastError()) != cudaSuccess) return int(err);
-    flash_bwd512_grads_kernel<<<dim3(T / kT, 6, n), kMainThreads, GradLayout::bytes, s>>>(
+    grads<<<dim3(T / kT, 3 * (D / (64 * NB)), n), kMainThreads, GradLayout<NB>::bytes, s>>>(
         ms[0], ms[1], m2[0], m2[1], m2[2], dq, dk, dv, T, H, bh0, scale);
     if ((err = cudaGetLastError()) != cudaSuccess) return int(err);
   }
@@ -751,7 +763,7 @@ int launch_512(const bf16* q, const bf16* k, const bf16* v, const bf16* o,
 // q, k, v, o, dout, dq, dk, dv: contiguous (B, T, H, D) bf16 on the device,
 // 16-byte aligned; lse: (B, H, T) fp32 from flash_attn_fwd; delta: (B, H, T)
 // fp32 scratch. D % 8 == 0 and D <= 80: scratch is a (B, H, T, D) fp32 dQ
-// sum filled with zeros and group is unused; D == 512: scratch holds 2 x
+// sum filled with zeros and group is unused; D is 128, 256 or 512: scratch holds 2 x
 // group x T x T bf16 (P and dS of `group` batch*head pairs at a time, 1 <=
 // group). T % 128 == 0. Returns cudaGetLastError() after the last launch (0
 // on success).
@@ -760,7 +772,8 @@ extern "C" int flash_attn_bwd(const void* q, const void* k, const void* v,
                               void* delta, void* scratch, void* dq, void* dk,
                               void* dv, int B, int T, int H, int D, int group,
                               float scale, void* stream) {
-  if (D <= 0 || D % 8 != 0 || (D > 80 && D != 512)) return int(cudaErrorInvalidValue);
+  if (D <= 0 || D % 8 != 0 || (D > 80 && D != 128 && D != 256 && D != 512))
+    return int(cudaErrorInvalidValue);
   auto c = [](const void* p) { return static_cast<const bf16*>(p); };
   auto m = [](void* p) { return static_cast<bf16*>(p); };
   const float* l = static_cast<const float*>(lse);
@@ -773,6 +786,12 @@ extern "C" int flash_attn_bwd(const void* q, const void* k, const void* v,
   if (D <= 80)
     return launch_main<80>(c(q), c(k), c(v), c(o), l, c(dout), dl, acc, m(dq),
                            m(dk), m(dv), B, T, H, D, scale, s);
-  return launch_512(c(q), c(k), c(v), c(o), l, c(dout), dl, m(scratch), m(dq), m(dk),
-                    m(dv), B, T, H, group, scale, s);
+  if (D == 128)
+    return launch_512<128>(c(q), c(k), c(v), c(o), l, c(dout), dl, m(scratch), m(dq),
+                           m(dk), m(dv), B, T, H, group, scale, s);
+  if (D == 256)
+    return launch_512<256>(c(q), c(k), c(v), c(o), l, c(dout), dl, m(scratch), m(dq),
+                           m(dk), m(dv), B, T, H, group, scale, s);
+  return launch_512<512>(c(q), c(k), c(v), c(o), l, c(dout), dl, m(scratch), m(dq),
+                         m(dk), m(dv), B, T, H, group, scale, s);
 }

@@ -48,6 +48,11 @@
 //   warpgroup runs the same softmax on their sum. 64 query rows, 64-row K/V
 //   tiles in one stage each: Q 64 KB + K 64 KB + V 64 KB + 32 KB = 224 KB
 //   of the 227 KB a block may use.
+// - D = 128 and 256 (the VAE mid blocks of width-scaled models) take the
+//   D = 512 design with D / 2 output columns a warpgroup: the column split
+//   keeps the accumulator and the softmax as they are at every one of the
+//   three widths. Shared memory: Q, K, V 3 x 16 KB a 64-column box, + 32
+//   KB: 128 KB at 256, 80 KB at 128.
 //
 // For training the kernel also writes each query row's log-sum-exp of the
 // scaled scores, fp32 (B, H, T) in natural-log units, which the backward
@@ -152,7 +157,8 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap mq,
                  int D, float scale_log2) {
   using L = FwdLayout<DP, BQ, BK, STAGES, COLS>;
   using Tl = Tile<DP>;
-  static_assert(!COLS || (DP == 512 && BQ == 64), "column split is for D = 512");
+  static_assert(!COLS || ((DP == 128 || DP == 256 || DP == 512) && BQ == 64),
+                "column split is for D = 128, 256 and 512");
   static_assert(COLS || BQ == 128, "row split: 64 query rows per warpgroup");
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = reinterpret_cast<unsigned char*>(
@@ -321,16 +327,18 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap mq,
         lse[size_t(bh) * T + qa + 8] = (m[1] + log2f(l[1])) * 0.6931471805599453f;
       }
     } else {
-      // all 64 query rows, output columns 256 w .. 256 w + 255 (boxes 4 w ..
-      // 4 w + 3); S over the same columns, summed with the other half's
+      // all 64 query rows, output columns DP / 2 w .. DP / 2 (w + 1) - 1
+      // (boxes NB w .. NB w + NB - 1); S over the same columns, summed with
+      // the other half's
       constexpr uint32_t kBox = 64 * 128;  // one 64-row, 64-column box
-      float acc[4][32], sc[32];
+      constexpr int NB = DP / 128;         // boxes a warpgroup
+      float acc[NB][32], sc[32];
 #pragma unroll
-      for (int n = 0; n < 4; ++n)
+      for (int n = 0; n < NB; ++n)
 #pragma unroll
         for (int i = 0; i < 32; ++i) acc[n][i] = 0.f;
       float* xs = reinterpret_cast<float*>(smem + L::x);
-      const uint64_t qd = desc(qs + 4 * w * kBox, 16, 1024, kSw128);
+      const uint64_t qd = desc(qs + NB * w * kBox, 16, 1024, kSw128);
       for (int kt = 0; kt < nk; ++kt) {
         unsigned char* ks = smem + L::k;
         unsigned char* vs = smem + L::v;
@@ -338,10 +346,10 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap mq,
 
         mbar_wait(k_full, ph);
         wgmma_fence();
-        const uint64_t kd = desc(ks + 4 * w * kBox, 16, 1024, kSw128);
+        const uint64_t kd = desc(ks + NB * w * kBox, 16, 1024, kSw128);
         mma_ss_n64<0, 0, false>(sc, qd, kd);
 #pragma unroll
-        for (int kk = 1; kk < 16; ++kk) {
+        for (int kk = 1; kk < 4 * NB; ++kk) {
           const uint32_t off = (kk / 4) * kBox + (kk % 4) * 32;
           mma_ss_n64<0, 0, true>(sc, advance(qd, off), advance(kd, off));
         }
@@ -361,23 +369,23 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap mq,
 
         softmax_step(sc, m, l, scale_log2, corr);
 #pragma unroll
-        for (int n = 0; n < 4; ++n) rescale(acc[n], corr);
+        for (int n = 0; n < NB; ++n) rescale(acc[n], corr);
         uint32_t pa[4][4];
 #pragma unroll
         for (int kk = 0; kk < 4; ++kk) acc_to_a(sc, kk, pa[kk]);
 
         mbar_wait(v_full, ph);
         wgmma_fence();
-        const uint64_t vd = desc(vs + 4 * w * kBox, 16, 1024, kSw128);
+        const uint64_t vd = desc(vs + NB * w * kBox, 16, 1024, kSw128);
 #pragma unroll
         for (int kk = 0; kk < 4; ++kk)
 #pragma unroll
-          for (int n = 0; n < 4; ++n)
+          for (int n = 0; n < NB; ++n)
             mma_rs_n64<1>(acc[n], pa[kk], advance(vd, n * kBox + 2048 * kk));
         wgmma_commit();
         wgmma_wait();
 #pragma unroll
-        for (int n = 0; n < 4; ++n) fence_regs(acc[n]);
+        for (int n = 0; n < NB; ++n) fence_regs(acc[n]);
         mbar_arrive(v_empty);
       }
       const int qa = q0 + r0;
@@ -390,8 +398,8 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap mq,
       bf16* row0 = ob + size_t(qa) * row_stride;
       bf16* row1 = ob + size_t(qa + 8) * row_stride;
 #pragma unroll
-      for (int n = 0; n < 4; ++n)
-        store_rows(acc[n], row0, row1, 256 * w + 64 * n, D, inv);
+      for (int n = 0; n < NB; ++n)
+        store_rows(acc[n], row0, row1, DP / 2 * w + 64 * n, D, inv);
       if (lse != nullptr && w == 0 && t % 4 == 0) {
         lse[size_t(bh) * T + qa] = (m[0] + log2f(l[0])) * 0.6931471805599453f;
         lse[size_t(bh) * T + qa + 8] = (m[1] + log2f(l[1])) * 0.6931471805599453f;
@@ -434,14 +442,15 @@ int launch(const void* q, const void* k, const void* v, void* o, float* lse,
 }  // namespace
 
 // q, k, v, o: contiguous (B, T, H, D) bf16 on the device, 16-byte aligned;
-// D % 8 == 0 and D <= 80, or D == 512; T % 128 == 0. lse: contiguous
+// D % 8 == 0 and D <= 80, or D is 128, 256 or 512; T % 128 == 0. lse: contiguous
 // (B, H, T) fp32, or null when the caller needs no log-sum-exp.
 // Returns cudaGetLastError() after the launch (0 on success).
 extern "C" int flash_attn_fwd(const void* q, const void* k, const void* v,
                               void* o, void* lse, int B, int T, int H, int D,
                               float scale, void* stream) {
-  // head dims of the path: 64 and 72 (padded to 80), and 512
-  if (D <= 0 || D % 8 != 0 || (D > 80 && D != 512)) return int(cudaErrorInvalidValue);
+  // head dims of the paths: 16 to 72 (padded to 64 or 80), 128, 256 and 512
+  if (D <= 0 || D % 8 != 0 || (D > 80 && D != 128 && D != 256 && D != 512))
+    return int(cudaErrorInvalidValue);
   const float scale_log2 = scale * 1.4426950408889634f;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* l = static_cast<float*>(lse);
@@ -449,5 +458,9 @@ extern "C" int flash_attn_fwd(const void* q, const void* k, const void* v,
     return launch<64, 128, 128, 2, false>(q, k, v, o, l, B, T, H, D, scale_log2, s);
   if (D <= 80)
     return launch<80, 128, 128, 2, false>(q, k, v, o, l, B, T, H, D, scale_log2, s);
+  if (D == 128)
+    return launch<128, 64, 64, 1, true>(q, k, v, o, l, B, T, H, D, scale_log2, s);
+  if (D == 256)
+    return launch<256, 64, 64, 1, true>(q, k, v, o, l, B, T, H, D, scale_log2, s);
   return launch<512, 64, 64, 1, true>(q, k, v, o, l, B, T, H, D, scale_log2, s);
 }

@@ -16,11 +16,17 @@ idiom: a ``torch.utils.data.DataLoader`` over a map-style dataset, with
   waits for ever; spawning starts each worker from a bare interpreter
   (20 s more a run on the card, PERF.md). The dataset is pickled to the
   workers. An exception in a worker is raised again in the caller;
-  ``pin_memory`` serves ``non_blocking`` copies to the card.
+  ``pin_memory`` serves ``non_blocking`` copies to the card. The fork
+  server keeps the environment it started with, so each worker takes the
+  data plane's switches (``DATA_PLANE_ENV``: ``PROMETHEUS_NATIVE``,
+  ``PROMETHEUS_JPEG_DRAFT``) from the caller's environment at the time the
+  loader was made, as the JAX loader's threads read their process's.
 """
 from __future__ import annotations
 
+import functools
 import multiprocessing
+import os
 
 import numpy as np
 import torch
@@ -59,6 +65,17 @@ def collate(items: list[dict]) -> dict:
     return out
 
 
+DATA_PLANE_ENV = ("PROMETHEUS_NATIVE", "PROMETHEUS_JPEG_DRAFT")
+
+
+def _set_env(env: dict, worker_id: int) -> None:
+    for k in DATA_PLANE_ENV:
+        if env.get(k) is None:
+            os.environ.pop(k, None)
+        else:
+            os.environ[k] = env[k]
+
+
 def make_loader(dataset, batch_size: int, *, num_workers: int = 4,
                 seed: int = 0, pin_memory: bool = False) -> DataLoader:
     """A ``DataLoader`` of ``dataset`` (pickled to each worker) in
@@ -73,4 +90,6 @@ def make_loader(dataset, batch_size: int, *, num_workers: int = 4,
         dataset, batch_sampler=ShuffledBatchSampler(
             len(dataset), batch_size, seed),
         num_workers=num_workers, collate_fn=collate, pin_memory=pin_memory,
-        multiprocessing_context=ctx)
+        multiprocessing_context=ctx,
+        worker_init_fn=functools.partial(
+            _set_env, {k: os.environ.get(k) for k in DATA_PLANE_ENV}))

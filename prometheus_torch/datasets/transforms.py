@@ -1,16 +1,21 @@
 """Image transforms of the data pipeline (``prometheus_tpu/datasets/
-transforms.py``), host-side in PIL and numpy.
+transforms.py``), host-side.
 
-Decode, central-square crop, antialiased (LANCZOS) resize, normalisation
-to float32 CHW in [-1, 1], flips and the augmentations. The pixel intrinsics
-``[fx, fy, cx, cy]`` are adjusted alongside every crop and resize, so the
-18-dim camera vector stays consistent with its image. This is the JAX
-package's pure-Python path (its ``PROMETHEUS_NATIVE=0``); its C++ data
-plane (libjpeg decode fused with the resize) is not ported.
+Decode, central-square crop, antialiased resize, normalisation to float32
+CHW in [-1, 1], flips and the augmentations. The pixel intrinsics ``[fx,
+fy, cx, cy]`` are adjusted alongside every crop and resize, so the 18-dim
+camera vector stays consistent with its image. As in the JAX package, the
+per-frame training transform (``crop_resize_normalize``,
+``decode_crop_resize_normalize``) runs through the native data plane
+(``prometheus_torch.native``: libjpeg's DCT-downscaled decode fused with
+a C++ triangle-filter resize); ``PROMETHEUS_NATIVE=0`` takes the PIL
+(LANCZOS) and numpy path instead, and ``PROMETHEUS_JPEG_DRAFT=0`` decodes
+JPEGs at full size on either path.
 """
 from __future__ import annotations
 
 import io
+import os
 
 import numpy as np
 from PIL import Image
@@ -21,18 +26,20 @@ def decode_image(data: bytes) -> np.ndarray:
     return np.asarray(Image.open(io.BytesIO(data)).convert("RGB"))
 
 
-def decode_image_draft(data: bytes, target: int, draft: bool = True):
+def decode_image_draft(data: bytes, target: int):
     """Decode for a ``target``^2 training frame. A JPEG decodes at the
     largest libjpeg DCT downscale (1/2, 1/4, 1/8) that keeps its short side
     >= ``target`` (PIL's draft mode), so the resize after it still strictly
-    downsamples; other formats, and ``draft=False``, decode at full size.
+    downsamples; other formats, and ``PROMETHEUS_JPEG_DRAFT=0``, decode at
+    full size.
 
     Returns ``(arr, (sx, sy))`` with ``sx = decoded_w / original_w`` (and
     ``sy`` likewise): multiply full-resolution pixel intrinsics ``[fx, cx]``
     by ``sx`` and ``[fy, cy]`` by ``sy`` before the crop's adjustment."""
     img = Image.open(io.BytesIO(data))
     w, h = img.size
-    if img.format == "JPEG" and target > 0 and draft:
+    if (img.format == "JPEG" and target > 0
+            and os.environ.get("PROMETHEUS_JPEG_DRAFT", "1") != "0"):
         k = 1
         while k < 8 and min(w, h) // (2 * k) >= target:
             k *= 2
@@ -76,28 +83,56 @@ def normalize_image(img: np.ndarray) -> np.ndarray:
 
 def crop_resize_normalize(img: np.ndarray, size: int,
                           intrinsics: np.ndarray | None = None):
-    """The per-frame training transform: central-square crop, LANCZOS
-    resize, float32 CHW in [-1, 1]. Returns ``(chw, intrinsics)``."""
-    out, intrinsics = center_crop_and_resize(
-        np.ascontiguousarray(img, np.uint8), size, intrinsics)
-    return normalize_image(out), intrinsics
+    """The per-frame training transform: central-square crop, antialiased
+    resize, float32 CHW in [-1, 1], in one pass of the native data plane
+    (its PIL LANCZOS + numpy version under ``PROMETHEUS_NATIVE=0``).
+    Returns ``(chw, intrinsics)``."""
+    from .. import native
+
+    if intrinsics is not None:
+        h, w = img.shape[:2]
+        intrinsics = _adjust_intrinsics(intrinsics, h, w, size)
+    return native.center_crop_resize_normalize(img, size), intrinsics
+
+
+def _scale_intrinsics(intrinsics, normalized: bool, sx: float, sy: float,
+                      dh: int, dw: int) -> np.ndarray:
+    """Full-resolution pixel (or normalized) intrinsics -> the decoded
+    image's pixels."""
+    fx, fy, cx, cy = np.asarray(intrinsics, np.float32)
+    if normalized:
+        return np.asarray([fx * dw, fy * dh, cx * dw, cy * dh], np.float32)
+    return np.asarray([fx * sx, fy * sy, cx * sx, cy * sy], np.float32)
 
 
 def decode_crop_resize_normalize(data: bytes, size: int,
                                  intrinsics: np.ndarray | None = None,
-                                 normalized: bool = False,
-                                 draft: bool = True):
-    """Image bytes -> (draft-)decode -> crop -> resize -> float32 CHW in
-    [-1, 1], with the intrinsics ``[fx, fy, cx, cy]`` given in
+                                 normalized: bool = False):
+    """Image bytes -> (DCT-downscaled) decode -> crop -> resize -> float32
+    CHW in [-1, 1], with the intrinsics ``[fx, fy, cx, cy]`` given in
     full-resolution pixels (``normalized=False``) or as ``[fx/W, fy/H, cx/W,
-    cy/H]`` (``normalized=True``) and returned in ``size``^2 pixels."""
-    raw, (sx, sy) = decode_image_draft(data, size, draft)
+    cy/H]`` (``normalized=True``) and returned in ``size``^2 pixels.
+
+    A JPEG goes through the native library in one call (libjpeg decode
+    fused with the transform); other formats, a file libjpeg declines, a
+    library built without libjpeg and ``PROMETHEUS_NATIVE=0`` decode with
+    PIL (:func:`decode_image_draft`) and go on through
+    :func:`crop_resize_normalize`."""
+    from .. import native
+
+    max_denom = (1 if os.environ.get("PROMETHEUS_JPEG_DRAFT", "1") == "0"
+                 else 8)
+    out = native.decode_jpeg_crop_resize_normalize(data, size, max_denom)
+    if out is not None:
+        chw, (sx, sy), (dh, dw) = out
+        if intrinsics is not None:
+            intrinsics = _adjust_intrinsics(_scale_intrinsics(
+                intrinsics, normalized, sx, sy, dh, dw), dh, dw, size)
+        return chw, intrinsics
+    raw, (sx, sy) = decode_image_draft(data, size)
     dh, dw = raw.shape[:2]
     if intrinsics is not None:
-        fx, fy, cx, cy = np.asarray(intrinsics, np.float32)
-        scale = (dw, dh, dw, dh) if normalized else (sx, sy, sx, sy)
-        intrinsics = np.asarray([fx * scale[0], fy * scale[1],
-                                 cx * scale[2], cy * scale[3]], np.float32)
+        intrinsics = _scale_intrinsics(intrinsics, normalized, sx, sy, dh, dw)
     return crop_resize_normalize(raw, size, intrinsics)
 
 

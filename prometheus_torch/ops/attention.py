@@ -29,7 +29,7 @@ FLASH_ATTN_BWD = CudaKernel(
     "flash_attn_bwd.cu", "flash_attn_bwd",
     [ctypes.c_void_p] * 11 + [ctypes.c_int] * 5
     + [ctypes.c_float, ctypes.c_void_p])
-# At D = 512 the backward keeps the bf16 probabilities P and score gradients
+# At D = 128, 256 and 512 the backward keeps the bf16 probabilities P and score gradients
 # dS of a group of (batch, head) pairs in device memory, 2 x group x T^2
 # values; a group holds as many pairs as keep one matrix within this many
 # values (64 MB), so a call splits into groups only where B H T^2 passes it.
@@ -78,8 +78,15 @@ def _check_bf16(fn: str, ref: torch.Tensor, **tensors) -> None:
         if x.shape != ref.shape or not x.is_contiguous() or x.data_ptr() % 16:
             raise ValueError(f"{fn}: {name} must be a contiguous, 16-byte "
                              f"aligned tensor of shape {tuple(ref.shape)}")
-    if T % 128 or not ((D <= 80 and D % 8 == 0) or D == 512):
+    if T % 128 or not kernel_head_dim(D):
         raise ValueError(f"{fn}: unsupported shape {tuple(ref.shape)}")
+
+
+def kernel_head_dim(d: int) -> bool:
+    """A head dim kernels A and A-bwd are built for: ``d <= 80`` with ``d %
+    8 == 0`` (the flagship paths' 64 and 72), or 128, 256 or 512 (the VAE
+    mid block's 512, and 128 and 256 at ``vae_ch`` 32 and 64)."""
+    return (d <= 80 and d % 8 == 0) or d in (128, 256, 512)
 
 
 def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -89,8 +96,8 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     Returns ``(out, lse)``: ``lse`` is the fp32 ``(B, H, T)`` log-sum-exp
     the backward needs, or None without ``with_lse``. The kernel takes
     contiguous bf16 ``(B, T, H, D)`` tensors of one shape with
-    ``T % 128 == 0`` and a head dim the path gives it: ``D <= 80`` with
-    ``D % 8 == 0`` (64 and 72 on the path), or ``D == 512``.
+    ``T % 128 == 0`` and a head dim the paths give it: ``D <= 80`` with
+    ``D % 8 == 0`` (64 and 72 on the flagship path), or 128, 256 or 512.
     """
     if q.device.type == "cpu":
         return (attention_plain(q, k, v),
@@ -163,7 +170,9 @@ class FlashAttention(torch.autograd.Function):
 
 
 def use_flash(q: torch.Tensor, k: torch.Tensor) -> bool:
-    """The JAX flash condition, on a bf16 CUDA tensor."""
+    """The JAX flash condition, on a bf16 CUDA tensor. A head dim the
+    kernels are not built for (``kernel_head_dim``) raises in the kernel's
+    wrapper rather than taking the plain path."""
     tq, tk = q.shape[1], k.shape[1]
     return (q.device.type == "cuda" and q.dtype == torch.bfloat16
             and tq == tk and tq >= FLASH_MIN_SEQ and tq % 128 == 0)

@@ -41,9 +41,17 @@ def sorted_tile_segments(proj: Projected, img_h: int, img_w: int,
                          max_tiles: tuple[int, int], opacities=None):
     """csort order -> ``(gauss_idx (T, K), in_seg (T, K), counts (T,) i32)``."""
     grid_h, grid_w = img_h // tile_size, img_w // tile_size
-    n_tiles = grid_h * grid_w
     sorted_tile, sorted_gauss = _candidate_sorted_instances(
         proj, tile_size, grid_w, grid_h, max_tiles, opacities=opacities)
+    return tile_segments(sorted_tile, sorted_gauss, grid_w * grid_h,
+                         capacity)
+
+
+def tile_segments(sorted_tile: torch.Tensor, sorted_gauss: torch.Tensor,
+                  n_tiles: int, capacity: int):
+    """Cut the sorted candidates into each tile's window of at most
+    ``capacity`` instances: ``(gauss_idx (T, K), in_seg (T, K), counts (T,)
+    i32)``."""
     dev = sorted_tile.device
     r = torch.arange(n_tiles, dtype=torch.int64, device=dev)
     starts = torch.searchsorted(sorted_tile, r)

@@ -104,14 +104,25 @@ def _candidate_sorted_instances(proj: Projected, tile_size: int, grid_w: int,
 
     An empty scene (``n == 0``) gives empty worklists.
     """
+    if proj.mean2d.shape[0] == 0:
+        empty = torch.zeros(0, dtype=torch.int64, device=proj.mean2d.device)
+        return empty, empty.clone()
+    keys, gauss, depth_bits = _candidate_keys(proj, tile_size, grid_w, grid_h,
+                                              max_tiles, opacities)
+    skey, perm = torch.sort(keys, stable=True)
+    return skey >> depth_bits, gauss[perm]
+
+
+def _candidate_keys(proj: Projected, tile_size: int, grid_w: int,
+                    grid_h: int, max_tiles: tuple[int, int],
+                    opacities: torch.Tensor | None = None):
+    """The unsorted candidates of a non-empty scene: ``(keys, gauss,
+    depth_bits)``, the fused keys ``(tile << depth_bits) | depth``
+    (``DEAD_KEY`` for a dead candidate) and each candidate's gaussian."""
     n = proj.mean2d.shape[0]
     dev = proj.mean2d.device
-    n_tiles = grid_w * grid_h
-    tile_bits = _tile_bits(n_tiles)
+    tile_bits = _tile_bits(grid_w * grid_h)
     depth_bits = 32 - tile_bits
-    if n == 0:
-        empty = torch.zeros(0, dtype=torch.int64, device=dev)
-        return empty, empty.clone()
     ex0, ey0, wx, wy = _clamped_windows(proj, tile_size, grid_w, grid_h,
                                         max_tiles)
     area = torch.where(proj.valid, wx * wy, torch.zeros_like(wx))
@@ -164,9 +175,7 @@ def _candidate_sorted_instances(proj: Projected, tile_size: int, grid_w: int,
                          .reshape(-1))
         gauss_parts.append(gidx[:, None].expand(tx.shape).reshape(-1))
         k_lo = k_hi
-    skey, perm = torch.sort(torch.cat(key_parts), stable=True)
-    sorted_gauss = torch.cat(gauss_parts)[perm]
-    return skey >> depth_bits, sorted_gauss
+    return torch.cat(key_parts), torch.cat(gauss_parts), depth_bits
 
 
 def default_instance_budget(n: int, factor: int = 6) -> int:

@@ -2,8 +2,9 @@
 config composition (``config.py``), the camera helpers of the datasets and
 the snapshot utilities, on small corpora written here with numpy and PIL.
 
-The JAX package runs with ``PROMETHEUS_NATIVE=0``, so both packages take
-the same PIL + numpy path. Tolerances:
+Both packages run with ``PROMETHEUS_NATIVE=0`` (the process's variable;
+the port's loader hands it to its workers), so both take the same PIL +
+numpy path; the native data plane is held in ``test_torch_native.py``. Tolerances:
 - the decode / crop / resize / normalise transform and its intrinsics, the
   file readers, the augmentations, the snapshot files: bit-equal;
 - dataset items (DL3DV, MVImgNet, UrbanGen, Objaverse, RE10K chunks, T2I,

@@ -45,6 +45,7 @@ from prometheus_torch.ops.attention import (FLASH_ATTN_BWD, FLASH_ATTN_FWD,
                                             flash_attention_bwd,
                                             flash_attention_bwd_plain,
                                             flash_attention_fwd,
+                                            kernel_head_dim,
                                             scaled_dot_product_attention,
                                             use_flash)
 from prometheus_torch.ops.gaussian import (composite_tiles,
@@ -89,6 +90,10 @@ STAGE2_SHAPES = [(64, 1024, 5, 64), (8, 2048, 10, 64), (8, 512, 20, 64),
                  (8, 2048, 16, 72)]
 # forward only: the frozen VAE encoder's mid block over 128 images
 STAGE2_FWD_SHAPES = [(128, 1024, 1, 512)]
+# the VAE mid block of the refine width study's widths 0.25 and 0.5
+# (``vae_ch`` 32 and 64), forward and backward, over 4 and 8 latents
+WIDTH_SHAPES = [(4, 1024, 1, 128), (8, 1024, 1, 128), (4, 1024, 1, 256),
+                (8, 1024, 1, 256)]
 
 
 @pytest.fixture
@@ -120,6 +125,16 @@ def test_flash_condition():
     assert not use_flash(meta(512), meta(512))
     with pytest.raises(ValueError):
         flash_attention_fwd(meta(512), meta(512), meta(512))
+
+
+def test_flash_head_dims():
+    """The head dims the kernels take: the flagship paths' 64, 72 and 512,
+    the small widths' 16 and 32, and the VAE mid block's 128 and 256 at the
+    refine width study's sub-flagship widths; the wrappers raise at any
+    other."""
+    assert all(kernel_head_dim(d) for d in (16, 32, 64, 72, 80, 128, 256,
+                                            512))
+    assert not any(kernel_head_dim(d) for d in (12, 96, 192, 384))
 
 
 def test_composite_wrapper_on_cpu_is_the_plain_version(rng):
@@ -189,7 +204,8 @@ def emulate_flash(q, k, v, block=64, drop_tile=None, correct=True):
 # design's 64 and 32 stay as cases)
 @pytest.mark.parametrize("t,d,block", [(512, 64, 64), (512, 72, 64),
                                        (512, 512, 32), (512, 64, 128),
-                                       (512, 72, 128), (512, 512, 64)])
+                                       (512, 72, 128), (512, 512, 64),
+                                       (512, 128, 64), (512, 256, 64)])
 def test_flash_tolerance_separates_rounding_from_faults(rng, t, d, block):
     # the card tests' limit, max|out - ref| / max|ref| <= 1e-2: the kernel's
     # own rounding stays well under it, a dropped K/V tile or a missing
@@ -206,7 +222,7 @@ def test_flash_tolerance_separates_rounding_from_faults(rng, t, d, block):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("shape", PATH_SHAPES + SMALL_SHAPES + MODE_SHAPES
-                         + STAGE2_SHAPES + STAGE2_FWD_SHAPES)
+                         + STAGE2_SHAPES + STAGE2_FWD_SHAPES + WIDTH_SHAPES)
 def test_flash_kernel_matches_plain_on_card(shape):
     need_card()
     g = torch.Generator(device="cuda").manual_seed(0)
@@ -355,7 +371,8 @@ def emulate_flash_bwd(q, k, v, do, block=64, drop_tile=None,
 # D <= 80: 64-query steps for dK, dV and 64-key dQ partials added in the
 # order blocks run (a random one here); D = 512: 16-key tiles, dQ in order
 @pytest.mark.parametrize("t,d,block", [(512, 72, 64), (512, 512, 16),
-                                       (256, 64, 64), (768, 72, 64)])
+                                       (256, 64, 64), (768, 72, 64),
+                                       (512, 128, 16)])
 def test_flash_bwd_tolerance_separates_rounding_from_faults(rng, t, d, block):
     q, k, v, do = (torch.from_numpy(rng.normal(size=(2, t, d))
                                     .astype(np.float32)).bfloat16()
@@ -370,7 +387,7 @@ def test_flash_bwd_tolerance_separates_rounding_from_faults(rng, t, d, block):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("shape", BWD_SHAPES + REFINE_BWD_SHAPES
-                         + STAGE2_SHAPES)
+                         + STAGE2_SHAPES + WIDTH_SHAPES)
 def test_flash_bwd_kernel_matches_plain_on_card(shape):
     need_card()
     g = torch.Generator(device="cuda").manual_seed(0)
@@ -907,3 +924,25 @@ def test_view_sharded_sample_over_nccl_matches_sample_on_card():
         dist.destroy_process_group()
     err = float((out - ref).abs().max()) / float(ref.abs().max())
     assert out.shape == ref.shape and err <= 1e-2
+
+
+@pytest.mark.gpu
+def test_raster_profile_worklists_on_card():
+    """Kernel B on the worklists that the stage runner of
+    ``prometheus_torch/tools/raster_profile.py``
+    builds (trained-statistics scene, reduced to 65,536 gaussians at
+    256^2), against its plain version, every stage timed."""
+    need_card()
+    from prometheus_torch.tools import raster_profile
+
+    before = COMPOSITE_FWD.launches
+    res, w = raster_profile.profile(n=65536, size=256, reps=2, device="cuda",
+                                    log=lambda msg: None)
+    assert COMPOSITE_FWD.launches > before
+    assert all(v > 0 for v in res["timings_ms"].values())
+    args = (w["data"], w["counts"], w["grid_w"], w["tiles_per_view"])
+    out = composite_tiles(*args)
+    ref = composite_tiles_plain(*args)
+    rows = [0, 1, 2, 4]
+    assert float((out[:, rows] - ref[:, rows]).abs().max()) <= 1e-4
+    assert res["instances_kept"] == int(w["counts"].sum()) > 0

@@ -6,9 +6,10 @@ and read through the port's classes and JAX's, and the shape of a
 ``LegacyMixingDataset`` item. The scenes are written as
 ``tests/test_legacy_datasets.py`` writes them.
 
-The JAX package runs with ``PROMETHEUS_NATIVE=0``, so both decode through
-PIL; items are equal to ``atol 1e-6`` (``test_torch_datasets.py::
-assert_items_equal``) for the same ``random.Random`` draws.
+Both packages run with ``PROMETHEUS_NATIVE=0`` (the process's variable),
+so both decode through PIL; items are equal to ``atol 1e-6``
+(``test_torch_datasets.py::assert_items_equal``) for the same
+``random.Random`` draws.
 """
 import gzip
 import json

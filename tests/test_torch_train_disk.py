@@ -186,7 +186,9 @@ def test_mvldm_from_disk_trains_with_the_single_view_loss(disk, tmp_path,
 
 def test_first_disk_batch_matches_jax(disk, tmp_path, monkeypatch):
     """The port's first batch against the JAX ``DataLoader`` on the same
-    config, the JAX luminance formula and JAX ``encode_text``."""
+    config, the JAX luminance formula and JAX ``encode_text``; both
+    packages' loaders take the PIL path (``PROMETHEUS_NATIVE=0``, which the
+    port's loader hands to its worker processes)."""
     for module in (jax_clip_text, torch_clip_text):
         monkeypatch.setattr(module, "hash", stable_hash, raising=False)
     monkeypatch.setenv("PROMETHEUS_NATIVE", "0")
