@@ -60,7 +60,20 @@ Phases (any failure ends the script with a non-zero exit):
    tile capacity 1024 and 512; C with random upstream gradients), each
    timed with its bound counted from the pairs it walks and keeps, and
    print ``psnr_vs_exact`` of the production render at capacity 1024 and
-   512 on that scene;
+   512 on that scene; then ``slot_binning``, the slot-layout binning
+   (``PROMETHEUS_BIN_DECODE=scanu``, budget ``s_max`` = 6 a gaussian) on
+   that scene and on phase 6's scene in its 8 views at 512^2, capacity
+   1024: ``instances_over_budget`` beside ``csort_pairs_dropped``, csort's
+   and the slot layout's binning ms on view 0 (CUDA events, median of 5),
+   the slots' live (tile, gauss) pairs equal to csort's in every view of
+   the trained-statistics scene where no cap binds, and on the first such
+   view the two orders equal up to the fused key's ties, with
+   ``psnr_vs_exact`` under each binning in its own and in exact-depth
+   order, ``render_gaussians`` forward and backward under the slot layout
+   (its launches are the ``slot_binning`` path's) with B and C held on the
+   render's own worklists (C with random upstream gradients),
+   ``psnr_vs_exact`` of view 0 under the slot layout and csort on the same
+   tiles, and the phase's seconds (``build/chip_smoke/slot_binning.json``);
 10. on the same pipeline, after the sampler's other modes, the refiners
    and the CLI with ``--refine``: image to 3D through the CLI's
    ``--ref_image`` (a reference PNG written from the seed; the full CLIP
@@ -193,7 +206,8 @@ Phases (any failure ends the script with a non-zero exit):
     built from ``prometheus_torch/native`` (its variant and
     ``jpeg_available()``); ``raster_profile`` at its production defaults
     (524,288 gaussians, 512^2, tile 16, capacity 1024; every stage's median
-    of 20 by CUDA events) with kernel B held on that run's own worklists;
+    of 20 by CUDA events: csort's and every slot layout's, each JAX key's
+    counterpart) with kernel B held on that run's own worklists;
     ``stage1_eval`` at flagship GS-decoder width on a RE10K-format split
     the run writes (2 scenes of 5 360x640 frames, its evaluation index and
     ``build_metadata re10k-index``), B held on its worklists;
@@ -217,12 +231,13 @@ Phases (any failure ends the script with a non-zero exit):
     ``launches_by_path``, the from-disk runs' warm steps and their
     snapshots (``val_snapshot``), image to 3D, eval and the DA2 run among
     them, the sharded paths, per rank, ``gmldm_sample``, ``gmldm_train``,
-    ``train_gsdecoder_no_dit``, ``train_gsdecoder_no_ema`` and the tools'
-    ``tools_<name>``; B's and C's
+    ``train_gsdecoder_no_dit``, ``train_gsdecoder_no_ema``, the tools'
+    ``tools_<name>`` and ``slot_binning``; B's and C's
     entries also hold their checks on the other worklists, B's its
     launches per orbit video,
-    its check on a tile band and the ``psnr_vs_exact`` readings) and,
-    last, the ``ok`` line.
+    its check on a tile band and the ``psnr_vs_exact`` readings, and both
+    their checks on the slot layouts' worklists) and, last, the ``ok``
+    line.
 
 Long logs (the ``nvcc -Xptxas -v`` reports, the profiles' kernel tables,
 the per-shape attention rows) and the CLI's exports go to
@@ -325,6 +340,8 @@ REPEATS = 5
 # capacity and frames a compositor launch (the JAX package's display path),
 # and the tile samples of psnr_vs_exact (bench.py's on-chip count)
 TRAJ_STEPS, VIDEO_CAPACITY, VIDEO_CHUNK, PSNR_TILES = 100, 512, 8, 32
+# the slot_binning phase: the image side and the trained-statistics scene
+SLOT_SIZE, SLOT_TRAINED_N = 512, 524288
 # train steps of the stage-1 phase (one cold, two warm) and the batch sizes
 # tried in turn (the configuration's 4, cut only if it does not fit)
 TRAIN_STEPS, TRAIN_BATCHES = 3, (4, 2, 1)
@@ -1023,7 +1040,7 @@ def check_generate_outputs(result: dict, launches: dict) -> None:
 
 
 def hold_last_binning() -> dict:
-    """Keep the arguments of the latest csort binning (``bin_views``, which
+    """Keep the arguments of the latest binning (``bin_views``, which
     each compositor launch of a render runs first) in the returned dict,
     without changing what the binning computes."""
     from prometheus_torch.ops.gaussian import composite_grad
@@ -2100,6 +2117,304 @@ def phase_scene_checks(result, entry_b: dict, entry_c: dict,
         if not math.isfinite(db):
             raise RuntimeError(f"psnr_vs_exact at capacity {cap}: {db}")
         entry_b["psnr_vs_exact_db"][cap] = db
+
+
+def live_pair_keys(sorted_tile, sorted_gauss, n_tiles: int, n: int):
+    """The live ``(tile, gauss)`` pairs of a sorted worklist as sorted
+    ``tile * n + gauss`` keys."""
+    import torch
+
+    live = sorted_tile < n_tiles
+    return torch.sort(sorted_tile[live] * n + sorted_gauss[live]).values
+
+
+def depth_tiebreak_binning():
+    """Make the render's binning order each tile's instances by their exact
+    float depth (ties by gaussian index) after it sorts on its fused key,
+    whose depth field keeps 12 mantissa bits at 1024 tiles. Returns the
+    function that restores the binning."""
+    import torch
+
+    from prometheus_torch.ops.gaussian import compositor
+
+    binning = compositor.sorted_instances
+
+    def exact_order(proj, *args, **kw):
+        st, sg = binning(proj, *args, **kw)
+        perm = torch.arange(sg.numel(), device=sg.device)
+        for key in (sg, proj.depth.detach()[sg], st):
+            perm = perm[torch.sort(key[perm], stable=True).indices]
+        return st[perm], sg[perm]
+
+    compositor.sorted_instances = exact_order
+
+    def restore():
+        compositor.sorted_instances = binning
+    return restore
+
+
+def fused_keys(sorted_tile, sorted_gauss, depth, n_tiles: int):
+    """The binning's fused sort key ``(tile << depth_bits) | (float32 bits
+    of max(depth, 0) >> tile_bits)`` of each entry of a sorted worklist."""
+    import torch
+
+    from prometheus_torch.ops.gaussian.tiled import _tile_bits
+
+    tile_bits = _tile_bits(n_tiles)
+    d = torch.clamp_min(depth.detach()[sorted_gauss], 0.0).contiguous()
+    bits = d.view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+    return (sorted_tile << (32 - tile_bits)) | (bits >> tile_bits)
+
+
+def phase_slot_binning(result, entry_b: dict, entry_c: dict,
+                       card: str) -> dict:
+    """The slot-layout binning (``PROMETHEUS_BIN_DECODE`` set to a JAX slot
+    mode; ``scanu`` here, every slot mode selects it) on the
+    trained-statistics scene of phase 9 and on phase 6's ``generate``
+    scene, each in its 8 views at 512^2, tile capacity 1024, the default
+    budget ``s_max`` = 6 a gaussian:
+
+    - the caps: ``instances_over_budget`` (the slot layout's) beside
+      ``csort_pairs_dropped`` (csort's), summed over the views;
+    - each binning's ms on view 0 (``sorted_instances``, CUDA events,
+      median of 5);
+    - on the trained-statistics scene the live ``(tile, gauss)`` pairs of
+      every view where neither cap binds equal csort's (where only csort's
+      tiers bind, csort's pairs are the slots' less at most those it
+      dropped); on the first view where none binds, the two worklists
+      hold the same fused keys in the same places and equal each other
+      once each tile is ordered by exact depth (the entries whose
+      gaussian differs are counted), and ``psnr_vs_exact`` of that view
+      under both binnings, with their own order and with the exact-depth
+      order, on the same tiles;
+    - ``render_gaussians`` under the slot layout, forward and backward
+      with random upstream gradients (the launches of these renders are
+      the ``slot_binning`` path's), with B held against its plain version
+      on the render's own worklists and C on them with random upstream
+      gradients;
+    - ``psnr_vs_exact`` of view 0 under the slot layout and under csort, on
+      the same tiles.
+    Any failed check ends the run."""
+    import torch
+
+    from prometheus_torch.ops.gaussian import (Projected,
+                                               default_instance_budget,
+                                               render_gaussians,
+                                               tile_overflow_stats)
+    from prometheus_torch.ops.gaussian.quality import (
+        make_trained_stats_scene, psnr_vs_exact)
+    from prometheus_torch.ops.gaussian.renderer import project_views
+    from prometheus_torch.ops.gaussian.tiled import (bin_decode_env,
+                                                     sorted_instances)
+
+    t_phase = time.perf_counter()
+    size, cap, max_tiles = SLOT_SIZE, 1024, (32, 32)
+    grid = size // 16
+    n_tiles = grid * grid
+    cams_gen = result["cameras"][0].float()
+    dev = cams_gen.device
+    cams_ts = cams_gen.clone()
+    cams_ts[:, 12:18] *= size / cams_ts[:, 16:17]
+    g = torch.Generator(device=dev).manual_seed(5)
+    scenes = {
+        "trained_stats": (cams_ts, make_trained_stats_scene(
+            cams_ts[None], g, n_gaussians=SLOT_TRAINED_N)),
+        "generate": (cams_gen, tuple(x[:1].float()
+                                     for x in result["gaussians"])),
+    }
+    out = {"scenes": {}}
+    launches = dict.fromkeys(all_kernels(), 0)
+    entry_b["on_slot_binning"], entry_c["on_slot_binning"] = {}, {}
+    for name, (cams, gs) in scenes.items():
+        xyz, feat, opacity, scales, quats = gs
+        n, views = xyz.shape[1], cams.shape[0]
+        op = opacity[0, :, 0]
+        one = tuple(x[0] for x in gs)
+        s_max = default_instance_budget(n)
+        with torch.no_grad():
+            proj = project_views(cams[None], xyz, scales, quats, opacity[..., 0],
+                                 size, size)
+        per_view = [Projected(*(None if f is None else f[v] for f in proj))
+                    for v in range(views)]
+        caps = dict(instances_over_budget=0.0, csort_pairs_dropped=0,
+                    instances_needed=0.0)
+        view_caps = [tile_overflow_stats(view, 16, grid, grid, max_tiles)
+                     for view in per_view]
+        for st in view_caps:
+            for k in caps:
+                caps[k] += st[k]
+        rec = dict(n=n, views=views, s_max=s_max, **caps)
+        log(f"slot_binning, {name} scene ({n} gaussians, {views} views at "
+            f"{size}^2, s_max {s_max}) on {card}: instances_over_budget "
+            f"{caps['instances_over_budget']:.0f}, csort_pairs_dropped "
+            f"{caps['csort_pairs_dropped']} of "
+            f"{caps['instances_needed']:.0f} pairs needed")
+
+        # each binning of view 0
+        view0 = per_view[0]
+        rec["binning_ms"] = {}
+        for mode, key in (("csort", "csort"), ("scanu", "slots")):
+            with bin_decode_env(mode):
+                rec["binning_ms"][key] = median_ms(
+                    lambda: sorted_instances(view0, 16, grid, grid, max_tiles,
+                                             opacities=op),
+                    iters=3, warmup=1)
+        with bin_decode_env("scanu"):
+            rec["slots_live_view0"] = int((sorted_instances(
+                view0, 16, grid, grid, max_tiles, opacities=op)[0]
+                < n_tiles).sum())
+        log(f"slot_binning, {name} scene, view 0 on {card}: binning ms "
+            + ", ".join(f"{m} {v:.3f}" for m, v in rec["binning_ms"].items())
+            + f"; {rec['slots_live_view0']} of {s_max} slots live")
+
+        if name == "trained_stats":
+            # where neither cap binds the live pair sets are equal; where
+            # only csort's does, csort's pairs are the slots' less at most
+            # the pairs csort dropped
+            equal_views, subset = [], 0
+            for v, (view, st) in enumerate(zip(per_view, view_caps)):
+                if st["instances_over_budget"]:
+                    continue
+                worklists, keys = {}, {}
+                for mode in ("scanu", "csort"):
+                    with bin_decode_env(mode):
+                        worklists[mode] = sorted_instances(
+                            view, 16, grid, grid, max_tiles, opacities=op)
+                    keys[mode] = live_pair_keys(*worklists[mode], n_tiles, n)
+                if not st["csort_pairs_dropped"]:
+                    ok = torch.equal(keys["scanu"], keys["csort"])
+                    equal_views.append(v)
+                else:
+                    inside = torch.isin(keys["csort"], keys["scanu"])
+                    extra = keys["scanu"].numel() - keys["csort"].numel()
+                    ok = bool(inside.all()) and \
+                        0 <= extra <= st["csort_pairs_dropped"]
+                    subset += 1
+                if not ok:
+                    raise RuntimeError("slot_binning: the slots' live (tile, "
+                                       "gauss) pairs disagree with csort's")
+                if len(equal_views) == 1 and equal_views[0] == v:
+                    # the two orders differ only inside runs of equal fused
+                    # keys: the same keys in the same places, and the same
+                    # worklist once each tile is in exact-depth order
+                    nl = int(keys["csort"].numel())
+                    (ts_, gs_), (tc, gc) = (
+                        (a[:nl], b[:nl]) for a, b in (worklists["scanu"],
+                                                      worklists["csort"]))
+                    same_keys = torch.equal(
+                        fused_keys(ts_, gs_, view.depth, n_tiles),
+                        fused_keys(tc, gc, view.depth, n_tiles))
+                    exact = []
+                    for t_, g_ in ((ts_, gs_), (tc, gc)):
+                        perm = torch.arange(nl, device=dev)
+                        for key in (g_, view.depth[g_], t_):
+                            perm = perm[torch.sort(key[perm],
+                                                   stable=True).indices]
+                        exact.append(g_[perm])
+                    if not (same_keys and torch.equal(*exact)):
+                        raise RuntimeError(
+                            f"slot_binning: view {v}'s slot and csort orders "
+                            f"differ beyond the fused key's ties (same keys "
+                            f"{same_keys})")
+                    rec["tie_order_witness"] = dict(
+                        view=v, live_pairs=nl,
+                        entries_in_other_order=int((gs_ != gc).sum()))
+            rec["live_pairs_vs_csort"] = dict(equal_views=len(equal_views),
+                                              subset_views=subset)
+            log(f"slot_binning: the slots' live (tile, gauss) pairs equal "
+                f"csort's in {len(equal_views)} of {views} views where no "
+                f"cap binds, hold csort's and at most its dropped pairs more "
+                f"in {subset} where csort drops pairs")
+            if "tie_order_witness" in rec:
+                wit = rec["tie_order_witness"]
+                v = wit["view"]
+                tiles = torch.randperm(n_tiles, generator=g,
+                                       device=dev)[:PSNR_TILES]
+                wit["psnr_vs_exact_db"] = {}
+                for order in ("fused key", "exact depth"):
+                    restore = (depth_tiebreak_binning()
+                               if order == "exact depth" else (lambda: None))
+                    try:
+                        for mode in ("scanu", "csort"):
+                            with bin_decode_env(mode):
+                                wit["psnr_vs_exact_db"][
+                                    f"{mode}, {order} order"] = psnr_vs_exact(
+                                        cams[v], one, tiles=tiles, h=size,
+                                        w=size, tile_capacity=cap)
+                    finally:
+                        restore()
+                log(f"slot_binning, trained_stats scene, view {v} on {card}: "
+                    f"{wit['entries_in_other_order']} of {wit['live_pairs']} "
+                    f"sorted entries hold another gaussian than csort's, all "
+                    f"inside runs of equal fused keys (the same worklist in "
+                    f"exact-depth order); psnr_vs_exact ({PSNR_TILES} "
+                    f"tiles) " + ", ".join(
+                        f"{k} {d:.2f} dB"
+                        for k, d in wit["psnr_vs_exact_db"].items()))
+
+        # psnr_vs_exact under both binnings; the render under the slot
+        # layout, forward and backward, B and C on its own worklists
+        tiles = torch.randperm(n_tiles, generator=g, device=dev)[:PSNR_TILES]
+        rec["psnr_vs_exact_db"] = {}
+        for mode, key in (("scanu", "slots"), ("csort", "csort")):
+            with bin_decode_env(mode):
+                rec["psnr_vs_exact_db"][key] = psnr_vs_exact(
+                    cams[0], one, tiles=tiles, h=size, w=size,
+                    tile_capacity=cap)
+        held, restore = hold_compositor_args()
+        leaves = tuple(x.detach().requires_grad_() for x in gs)
+        try:
+            with bin_decode_env("scanu"):
+                zero_counts()
+                images, depths, masks = render_gaussians(
+                    cams[None], leaves, h=size, w=size, tile_capacity=cap)
+                up = torch.randn(images.shape, generator=g, device=dev)
+                (images * up).sum().backward()
+                torch.cuda.synchronize()
+                counts_now = read_counts()
+        finally:
+            restore()
+        for k, v in counts_now.items():
+            launches[k] += v
+        finite = all(bool(torch.isfinite(x).all())
+                     for x in (images, depths, masks,
+                               *(lf.grad for lf in leaves)))
+        if not finite or counts_now["composite_fwd"] <= 0 \
+                or counts_now["composite_bwd"] <= 0:
+            raise RuntimeError(f"slot_binning ({name}): finite {finite}, "
+                               f"launches {counts_now}")
+        data, counts, grid_w, tpv = held["args"]
+        label = f"{name} scene, slot worklists, {views} views"
+        entry_b["on_slot_binning"][name] = check_composite_fwd(
+            label, data, counts, grid_w, tpv)
+        gout = torch.randn(data.shape[0], 8, 256, generator=g, device=dev)
+        gout[:, 5:] = 0.0
+        entry_c["on_slot_binning"][name] = check_composite_bwd(
+            label, data, gout, counts, grid_w, tpv)
+        rec["render"] = dict(
+            launches=counts_now, instances_binned=int(counts.sum()),
+            alpha_mean=float(masks.detach().mean()))
+        log(f"slot_binning, {name} scene, view 0 on {card}: psnr_vs_exact "
+            f"({PSNR_TILES} tiles) slots "
+            f"{rec['psnr_vs_exact_db']['slots']:.2f} dB, csort "
+            f"{rec['psnr_vs_exact_db']['csort']:.2f} dB; render: "
+            f"{rec['render']['instances_binned']} instances binned, "
+            f"launches {counts_now}")
+        if not all(math.isfinite(v) for v in rec["psnr_vs_exact_db"].values()):
+            raise RuntimeError(f"slot_binning: psnr_vs_exact {rec}")
+        out["scenes"][name] = rec
+        del data, counts, gout, held, images, depths, masks, leaves
+        del proj, per_view, view0
+        torch.cuda.empty_cache()
+    out["launches"] = launches
+    out["seconds"] = time.perf_counter() - t_phase
+    entry_b["psnr_vs_exact_slot_db"] = {
+        name: r["psnr_vs_exact_db"] for name, r in out["scenes"].items()}
+    log(f"slot_binning: {out['seconds']:.1f} s, launches {launches}")
+    (LOG_DIR / "slot_binning.json").write_text(json.dumps(dict(
+        out, composite_fwd=entry_b["on_slot_binning"],
+        composite_bwd=entry_c["on_slot_binning"]), indent=1, default=str))
+    return out
 
 
 def kernel_class(name: str) -> str:
@@ -4467,9 +4782,14 @@ def phase_tools(seed: int, card: str, shapes: dict) -> dict:
         f"on {card}: " + ", ".join(f"{k} {v:.3f}" for k, v in t.items())
         + f"; {raster['candidates']} candidates, {raster['candidates_live']} "
         f"live, {raster['instances_kept']} kept, "
-        f"{raster['tiles_at_capacity']} tiles at capacity; JAX keys -> "
-        f"stages {raster['jax_keys']}; no counterpart: "
-        f"{raster['jax_keys_without_counterpart']}")
+        f"{raster['tiles_at_capacity']} tiles at capacity, "
+        f"{raster['slots_live']} of s_max {raster['s_max']} slots live "
+        f"in the slot layout, binsort winner {raster['decode_winner']}; JAX "
+        f"keys -> "
+        f"stages {raster['jax_keys']}")
+    missing = set(raster["jax_keys"].values()) - set(t)
+    if missing:
+        raise RuntimeError(f"raster_profile timed no {sorted(missing)}")
     out["raster_profile"] = raster
     out["composite_fwd_on_raster_profile"] = check_composite_fwd(
         "raster_profile's render worklists", *held["args"])
@@ -4743,6 +5063,7 @@ def main() -> int:
     entry_a["on_new_shapes"], entry_abwd["on_new_shapes"] = \
         phase_new_attention_shapes(shapes)
     phase_scene_checks(traj_result, entry_b, entry_c, binning)
+    slot = phase_slot_binning(traj_result, entry_b, entry_c, card)
     del traj_result
     torch.cuda.empty_cache()
     trainer, marks, train_launches, c_args, train_dropped = phase_train(
@@ -4847,6 +5168,7 @@ def main() -> int:
              "serve": serving["launches"],
              "serve_http": serving_http["launches"],
              "gmldm_sample": gmldm_sample["launches"],
+             "slot_binning": slot["launches"],
              "gmldm_train": gmldm_train["launches"],
              **{f"train_gsdecoder_{n}": v["launches"]
                 for n, v in variants.items()},
@@ -4896,7 +5218,8 @@ def main() -> int:
              "launches_per_serve_batch", "on_tile_band",
              "psnr_vs_exact_db", "on_gmldm_sample",
              "on_train_gsdecoder_no_dit", "on_train_gsdecoder_no_ema",
-             "on_raster_profile", "on_stage1_eval")
+             "on_raster_profile", "on_stage1_eval", "on_slot_binning",
+             "psnr_vs_exact_slot_db")
     entries = (entry_a, entry_b, entry_abwd, entry_c)
     kernels = [{k: e[k] for k in keys + extra if k in e} for e in entries]
     (LOG_DIR / "attention_shapes.json").write_text(json.dumps(dict(

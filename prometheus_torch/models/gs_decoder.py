@@ -8,12 +8,15 @@ mapped the first 4; without it, ``[rgb latent / VAE_SCALE 4, depth latent
 4, raymap 6]`` (the DiT branch does not unscale, as in JAX). With
 ``use_ema_norm`` EMANorms sit after each non-final upsample conv. The
 frozen VAE encoder embeds input views (``encode_image``, scale 0.18215).
+``decode_and_render`` chains the decode, ``convert_gaussians`` and
+``render_gaussians``.
 """
 from __future__ import annotations
 
 import torch
 from torch import nn
 
+from ..ops.gaussian import convert_gaussians, render_gaussians
 from .ray_dit import CrossViewDiTWrapped
 from .vae import AutoencoderKL
 
@@ -75,3 +78,25 @@ class GSDecoderModel(nn.Module):
         out = self.vae.decode(x[:, :lc], extra_z=x[:, lc:], post_conv=True,
                               train=train)
         return out.reshape((B, N) + out.shape[1:])
+
+
+def decode_and_render(model: GSDecoderModel, latents: torch.Tensor,
+                      decode_cameras: torch.Tensor,
+                      render_cameras: torch.Tensor, h: int = 256,
+                      w: int = 256, bg_color=None,
+                      gs_kwargs: dict | None = None, train: bool = False):
+    """Latents ``(B, N_in, 14, h', w')`` of the views ``decode_cameras (B,
+    N_in, 18)`` -> gaussians -> renders of ``render_cameras (B, N_out, 18)``.
+
+    Returns ``(images (B, N_out, 3, h, w) in [-1, 1], depths, masks,
+    gaussians)``. JAX's version takes the flax ``variables`` and returns
+    the updated batch statistics too; here the model holds its weights, and
+    ``train`` updates its EMANorms in place.
+    """
+    gs_kwargs = dict(gs_kwargs or {})
+    mode = gs_kwargs.pop("mode", "mvsplat")
+    raw = model.decode_latent(latents, train=train)
+    gaussians = convert_gaussians(raw, decode_cameras, mode=mode, **gs_kwargs)
+    images, depths, masks = render_gaussians(render_cameras, gaussians, h=h,
+                                             w=w, bg_color=bg_color)
+    return images, depths, masks, gaussians

@@ -108,6 +108,13 @@ class DiagonalGaussian:
     def mode(self) -> torch.Tensor:
         return self.mean
 
+    def kl(self) -> torch.Tensor:
+        """KL divergence to the standard normal, summed per sample:
+        ``(B,)``."""
+        return 0.5 * torch.sum(
+            self.mean ** 2 + torch.exp(self.logvar) - 1.0 - self.logvar,
+            dim=(1, 2, 3))
+
 
 class AutoencoderKL(nn.Module):
     """SD VAE with quant / post-quant 1x1 convs; the encoder half only with

@@ -3,8 +3,9 @@
 ``composite_pallas_diff`` and ``composite_tiled_pallas_grad``).
 
 ``CompositeFunction`` takes the projected gaussians of ``V`` views at once.
-Its forward bins every view once (``bin_views``: csort,
-``sorted_tile_segments``, ``gather_rows``, outside autograd), composites
+Its forward bins every view once (``bin_views``: the binning that
+``PROMETHEUS_BIN_DECODE`` picks, ``sorted_tile_segments``, ``gather_rows``,
+outside autograd), composites
 all ``V`` views' worklists in one kernel B launch, and saves the
 worklists, their gaussian indices, the segment mask, the counts and the
 depth and alpha images. Its backward chains the expected-depth division,

@@ -2,8 +2,10 @@
 ``prometheus_tpu/ops/gaussian/pallas_kernel.py``) and its gradient (kernel
 C, ``prometheus_tpu/ops/gaussian/pallas_backward.py::_bwd_kernel``).
 
-``sorted_tile_segments`` cuts the csort order into per-tile windows of at
-most ``capacity`` instances, ``gather_rows`` packs them channel-major as
+``sorted_tile_segments`` cuts the binning's order
+(``tiled.sorted_instances``: csort, or the slot layout under
+``PROMETHEUS_BIN_DECODE``) into per-tile windows of at most ``capacity``
+instances, ``gather_rows`` packs them channel-major as
 ``(T, 16, K)`` f32 (dead slots get zero opacity), and ``composite_tiles``
 composites every tile: ``csrc/composite_fwd.cu`` on a CUDA tensor, the plain
 PyTorch version on a CPU tensor. ``composite_tiles_bwd`` maps upstream pixel
@@ -21,7 +23,7 @@ import torch
 
 from ...utils.cuda_build import CudaKernel
 from .projection import ALPHA_CUTOFF, MAX_ALPHA, Projected
-from .tiled import _candidate_sorted_instances
+from .tiled import sorted_instances
 
 CHUNK = 128
 N_CH = 16
@@ -39,9 +41,10 @@ COMPOSITE_BWD = CudaKernel(
 def sorted_tile_segments(proj: Projected, img_h: int, img_w: int,
                          tile_size: int, capacity: int,
                          max_tiles: tuple[int, int], opacities=None):
-    """csort order -> ``(gauss_idx (T, K), in_seg (T, K), counts (T,) i32)``."""
+    """The binning's order -> ``(gauss_idx (T, K), in_seg (T, K), counts
+    (T,) i32)``."""
     grid_h, grid_w = img_h // tile_size, img_w // tile_size
-    sorted_tile, sorted_gauss = _candidate_sorted_instances(
+    sorted_tile, sorted_gauss = sorted_instances(
         proj, tile_size, grid_w, grid_h, max_tiles, opacities=opacities)
     return tile_segments(sorted_tile, sorted_gauss, grid_w * grid_h,
                          capacity)

@@ -14,6 +14,7 @@ from typing import NamedTuple
 
 import torch
 
+from ...utils.cameras import camera_c2w, opengl_to_opencv
 from ...utils.quaternion import quaternion_to_matrix
 
 EPS2D = 0.3
@@ -39,6 +40,20 @@ def bbox_extents(proj: Projected) -> tuple[torch.Tensor, torch.Tensor]:
     rx = proj.radius if proj.rx is None else proj.rx
     ry = proj.radius if proj.ry is None else proj.ry
     return rx, ry
+
+
+def covariance_3d(scales: torch.Tensor, quats: torch.Tensor) -> torch.Tensor:
+    """World-space covariance ``R diag(s^2) R^T`` -> ``(..., 3, 3)``."""
+    R = quaternion_to_matrix(quats)
+    return (R * (scales**2)[..., None, :]) @ R.transpose(-1, -2)
+
+
+def w2c_from_camera_vector(camera: torch.Tensor) -> torch.Tensor:
+    """18-dim OpenGL camera vector -> (4, 4) OpenCV world-to-camera."""
+    c2w = camera_c2w(camera)
+    c2w_cv = torch.cat([opengl_to_opencv(c2w[:3, :4]),
+                        camera.new_tensor([[0.0, 0.0, 0.0, 1.0]])], dim=0)
+    return torch.linalg.inv(c2w_cv)
 
 
 def project_gaussians(means3d, scales, quats, w2c, fx, fy, cx, cy,

@@ -1,8 +1,9 @@
 """Render quality against the exact compositor
 (``prometheus_tpu/ops/gaussian/quality.py``).
 
-``psnr_vs_exact`` holds the production render (projection, csort binning
-at a tile capacity, kernel B) against ``composite_exact_pixels`` on a
+``psnr_vs_exact`` holds the production render (projection, the binning
+that ``PROMETHEUS_BIN_DECODE`` picks, at a tile capacity, kernel B) against
+``composite_exact_pixels`` on a
 random subset of tiles. ``make_trained_stats_scene`` draws a scene with the
 splat statistics of a trained model (mostly sub-tile splats, bimodal
 opacity), where random decoder weights give nearly opaque all-big splats.

@@ -19,21 +19,14 @@ from __future__ import annotations
 
 import torch
 
-from ...utils.cameras import camera_c2w, camera_intrinsics, opengl_to_opencv
+from ...utils.cameras import camera_intrinsics
 from .composite_grad import composite_tiled_grad
 from ...parallel.dist import all_gather_cat, get_rank, resolve_group, \
     world_size
-from .projection import Projected, bbox_extents, project_gaussians
+from .projection import (Projected, bbox_extents, project_gaussians,
+                         w2c_from_camera_vector)
 
 DEFAULT_BACKGROUND = (1.0, 1.0, 1.0)
-
-
-def world_to_camera(camera: torch.Tensor) -> torch.Tensor:
-    """18-dim OpenGL camera vector -> (4, 4) OpenCV world-to-camera."""
-    c2w = camera_c2w(camera)
-    c2w_cv = torch.cat([opengl_to_opencv(c2w[:3, :4]),
-                        camera.new_tensor([[0.0, 0.0, 0.0, 1.0]])], dim=0)
-    return torch.linalg.inv(c2w_cv)
 
 
 def project_view(camera, xyz, scales, rotations, opacity, h: int, w: int,
@@ -43,7 +36,8 @@ def project_view(camera, xyz, scales, rotations, opacity, h: int, w: int,
     as an image of its own: the means move up by ``y0`` and the gaussians
     whose vertical support misses the band are culled."""
     fx, fy, cx, cy, _, _ = camera_intrinsics(camera, h=h, w=w)
-    proj = project_gaussians(xyz, scales, rotations, world_to_camera(camera),
+    proj = project_gaussians(xyz, scales, rotations,
+                             w2c_from_camera_vector(camera),
                              fx, fy, cx, cy, h, w, near=near,
                              opacities=opacity)
     if band is None:
@@ -77,7 +71,8 @@ def render_gaussians(cameras: torch.Tensor, gaussians, h: int = 256,
     in [-1, 1], depths (B, N, 1, h, w), masks (B, N, 1, h, w))``,
     differentiable with respect to the gaussians. ``band=(y0, band_h)``
     renders only those rows (see ``project_view``): the outputs are
-    ``band_h`` rows high."""
+    ``band_h`` rows high. ``PROMETHEUS_BIN_DECODE`` picks the binning
+    (``tiled.sorted_instances``)."""
     xyz, features, opacity, scales, rotations = (
         g.to(torch.float32) for g in gaussians)
     B, N = cameras.shape[:2]

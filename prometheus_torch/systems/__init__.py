@@ -4,5 +4,13 @@ from .gs_decoder_system import GSDecoderSystem, psnr
 from .mv_ldm_system import MVLDMSystem
 from .traj_dit_system import TrajDiTSystem
 
-__all__ = ["GMLDMSystem", "GSDecoderSystem", "MVLDMSystem", "TrajDiTSystem",
-           "psnr", "scale_and_shift_invariant_loss"]
+SYSTEM_REGISTRY = {
+    "GMLDMSystem": GMLDMSystem,
+    "GSDecoderSystem": GSDecoderSystem,
+    "MVLDMSystem": MVLDMSystem,
+    "TrajDiTSystem": TrajDiTSystem,
+}
+
+__all__ = ["GMLDMSystem", "GSDecoderSystem", "MVLDMSystem",
+           "SYSTEM_REGISTRY", "TrajDiTSystem", "psnr",
+           "scale_and_shift_invariant_loss"]

@@ -6,6 +6,8 @@ solved in closed form from the 2x2 normal equations under a mask; the data
 term is the masked MSE of the aligned prediction, plus a multi-scale
 gradient-matching term. Every division has a safe denominator on the branch
 ``torch.where`` does not take, so no NaN reaches the gradient.
+``depth_to_disp`` / ``disp_to_depth`` convert between depth and (optionally
+2-98% quantile-normalised) disparity.
 """
 from __future__ import annotations
 
@@ -75,3 +77,38 @@ def scale_and_shift_invariant_loss(prediction: torch.Tensor,
                 aligned[:, ::step, ::step], target[:, ::step, ::step],
                 mask[:, ::step, ::step])
     return total
+
+
+def disp_to_depth(disp: torch.Tensor, eps: float = 1e-4) -> torch.Tensor:
+    """Normalised disparity in [0, 1] -> depth, ``1 / max(disp, eps)``."""
+    return 1.0 / torch.clamp_min(disp, eps)
+
+
+def _quantile_linear(x: torch.Tensor, q: float) -> torch.Tensor:
+    """``jnp.quantile(x, q)`` (linear interpolation over the flattened
+    tensor, float32 index arithmetic, NaN if any value is NaN) by one sort,
+    so it takes inputs past ``torch.quantile``'s 2**24 elements."""
+    flat = torch.sort(x.reshape(-1)).values
+    n = flat.numel()
+    pos = torch.tensor(q, dtype=flat.dtype) * (
+        torch.tensor(n, dtype=flat.dtype) - 1)
+    low, high = torch.floor(pos), torch.ceil(pos)
+    hw = pos - low
+    lo_i = int(torch.clamp(low, 0, n - 1))
+    hi_i = int(torch.clamp(high, 0, n - 1))
+    out = flat[lo_i] * (1 - hw).to(flat.device) + flat[hi_i] * hw.to(
+        flat.device)
+    return torch.where(torch.isnan(flat[-1]), flat[-1], out)
+
+
+def depth_to_disp(depth: torch.Tensor, eps: float = 1e-4,
+                  normalize: bool = True) -> torch.Tensor:
+    """Depth -> disparity ``1 / max(depth, eps)``; with ``normalize``,
+    mapped to [0, 1] between its 2% and 98% quantiles and clipped."""
+    disp = 1.0 / torch.clamp_min(depth, eps)
+    if normalize:
+        lo = _quantile_linear(disp, 0.02)
+        hi = _quantile_linear(disp, 0.98)
+        disp = (disp - lo) / torch.clamp_min(hi - lo, 1e-8)
+        disp = torch.clamp(disp, 0.0, 1.0)
+    return disp

@@ -11,20 +11,29 @@ Stages, each timed alone on the previous stage's outputs (the median of
   ``bin_keys_ms``, its candidates (windows, area order, depth keys and the
   tiered expansion with the alpha test) and ``sort_ms``, the stable sort of
   their fused keys;
-- ``segments_gather_ms``: each tile's window of the sorted order and the
+- the slot layout (``PROMETHEUS_BIN_DECODE`` set to any of the JAX
+  package's slot modes), at the budget ``default_instance_budget(n)``:
+  ``expand_ms``, ``_tile_instances``; its parts ``sub_prefix_ms``
+  (windows, opacity order, prefix sums), ``sub_decode_ms`` (slot ->
+  gaussian) and ``sub_gather_cull_ms`` (each slot's tile and the exact
+  cull); ``binsort_slots_ms``, the expansion and ``sort_tile_instances``
+  (``sorted_instances``);
+- ``segments_gather_ms``: each tile's window of the csort order and the
   packed ``(T, 16, K)`` worklists (``tile_segments``, ``gather_rows``);
 - ``kernel_ms``: kernel B (``composite_tiles``) alone; ``compositor_ms``:
   ``run_compositor_kernel``, B and the image layout;
-- ``e2e_ms``: ``render_gaussians`` end to end (projection to images);
-  ``e2e_plain_ms``: the same steps with the plain compositor.
+- ``e2e_ms``: ``render_gaussians`` end to end (projection to images) under
+  csort, ``e2e_slots_ms`` under the slot layout; ``e2e_plain_ms``: csort
+  with the plain compositor.
 
-The JAX tool's timings map onto these by ``JAX_KEYS``; its slot-decode
-variants and their sub-stages (``PROMETHEUS_BIN_DECODE``) test a TPU choice
-the port does not have, and ``JAX_KEYS_WITHOUT_COUNTERPART`` lists them.
+``JAX_KEYS`` maps every timing key of the JAX tool onto the port's stage
+that computes the same step: the JAX tool's five slot modes give the same
+slots and map onto the one slot layout, so ``--fast`` (the JAX tool's
+"``scanu`` only") is accepted and has nothing to skip.
 ::
 
     python -m prometheus_torch.tools.raster_profile [--n 524288] \\
-        [--size 512] [--reps 20] [--out raster_profile.json]
+        [--size 512] [--reps 20] [--fast] [--out raster_profile.json]
 """
 from __future__ import annotations
 
@@ -46,13 +55,17 @@ JAX_KEYS = {
     "kernel_ms": "compositor_ms",
     "e2e_pallas_csort_ms": "e2e_ms",
     "e2e_xla_ms": "e2e_plain_ms",
+    **{f"expand_{m}_ms": "expand_ms"
+       for m in ("scanu", "fscatter", "addcumsum", "scan", "bsearch")},
+    "sub_prefix_ms": "sub_prefix_ms",
+    "sub_decode_scanu_ms": "sub_decode_ms",
+    "sub_decode_scan_ms": "sub_decode_ms",
+    "sub_gather_cull_ms": "sub_gather_cull_ms",
+    "binsort_scanu_ms": "binsort_slots_ms",
+    "binsort_fscatter_ms": "binsort_slots_ms",
+    "e2e_pallas_ms": "e2e_slots_ms",
+    "e2e_pallas_fscatter_ms": "e2e_slots_ms",
 }
-JAX_KEYS_WITHOUT_COUNTERPART = [
-    "expand_scanu_ms", "expand_fscatter_ms", "expand_addcumsum_ms",
-    "expand_scan_ms", "expand_bsearch_ms", "sub_prefix_ms",
-    "sub_decode_scanu_ms", "sub_decode_scan_ms", "sub_gather_cull_ms",
-    "binsort_scanu_ms", "binsort_fscatter_ms", "e2e_pallas_ms",
-    "e2e_pallas_fscatter_ms"]
 
 
 def time_stage(fn, reps: int, device: torch.device, warmup: int = 2) -> float:
@@ -82,9 +95,9 @@ def time_stage(fn, reps: int, device: torch.device, warmup: int = 2) -> float:
 def profile(n: int = 524288, size: int = 512, reps: int = 20,
             tile_size: int = 16, capacity: int = 1024, device="cuda",
             seed: int = 0, log=None):
-    """Build the scene and time every stage. Returns ``(result,
-    worklists)``: the JSON dict and ``{data, counts, grid_w,
-    tiles_per_view}`` of the view, the kernel's own inputs."""
+    """Build the scene and time every stage. Returns ``(result, worklists)``: the JSON dict
+    and ``{data, counts, grid_w, tiles_per_view}`` of the view, the
+    kernel's own inputs."""
     from ..ops.gaussian.compositor import (composite_tiles,
                                            composite_tiles_plain, gather_rows,
                                            run_compositor_kernel,
@@ -92,7 +105,12 @@ def profile(n: int = 524288, size: int = 512, reps: int = 20,
     from ..ops.gaussian.quality import make_trained_stats_scene
     from ..ops.gaussian.renderer import project_view, render_gaussians
     from ..ops.gaussian.tiled import (_candidate_keys,
-                                      _candidate_sorted_instances)
+                                      _candidate_sorted_instances,
+                                      _decode_slots, _slot_instances,
+                                      _slot_layout, _tile_instances,
+                                      bin_decode_env,
+                                      default_instance_budget,
+                                      sorted_instances)
     from ..utils import get_random_cameras, resolve_device
 
     device = resolve_device(device)
@@ -124,6 +142,20 @@ def profile(n: int = 524288, size: int = 512, reps: int = 20,
             "binsort_ms", lambda: _candidate_sorted_instances(
                 proj, ts, grid_w, grid_h, MAX_TILES, opac))
 
+        # the slot layout: the expansion, its parts, expansion and sort
+        s_max = default_instance_budget(n)
+        expanded = stage("expand_ms", lambda: _tile_instances(
+            proj, ts, grid_w, grid_h, MAX_TILES, s_max, opac))
+        layout = stage("sub_prefix_ms", lambda: _slot_layout(
+            proj, ts, grid_w, grid_h, MAX_TILES, s_max, opac))
+        p_of_slot = stage("sub_decode_ms",
+                          lambda: _decode_slots(layout, s_max))
+        stage("sub_gather_cull_ms", lambda: _slot_instances(
+            proj, ts, grid_w, grid_h, layout, p_of_slot, s_max, opac))
+        with bin_decode_env("scanu"):
+            stage("binsort_slots_ms", lambda: sorted_instances(
+                proj, ts, grid_w, grid_h, MAX_TILES, s_max, opac))
+
         def segments_gather():
             idx, in_seg, counts = tile_segments(sorted_tile, sorted_gauss,
                                                 n_tiles, capacity)
@@ -134,9 +166,14 @@ def profile(n: int = 524288, size: int = 512, reps: int = 20,
                                                    n_tiles, ts))
         stage("compositor_ms", lambda: run_compositor_kernel(data, counts, h,
                                                              w, ts))
-        stage("e2e_ms", lambda: render_gaussians(
-            cams[None], scene, h=h, w=w, tile_size=ts,
-            tile_capacity=capacity, max_tiles=MAX_TILES))
+        def e2e():
+            return render_gaussians(cams[None], scene, h=h, w=w,
+                                    tile_size=ts, tile_capacity=capacity,
+                                    max_tiles=MAX_TILES)
+
+        for mode, key in (("csort", "e2e_ms"), ("scanu", "e2e_slots_ms")):
+            with bin_decode_env(mode):
+                stage(key, e2e)
 
         def e2e_plain():
             p = project_view(cams[0], xyz, scales, rotations, opac, h, w)
@@ -154,13 +191,17 @@ def profile(n: int = 524288, size: int = 512, reps: int = 20,
                    if device.type == "cuda" else "cpu"),
         "n_gaussians": n, "size": size, "tile_size": ts,
         "capacity": capacity, "max_tiles": list(MAX_TILES), "reps": reps,
+        "s_max": s_max, "slots_live": int((expanded[0] < n_tiles).sum()),
         "candidates": int(keys.numel()), "candidates_live": live,
         "instances_kept": int(counts.sum()),
         "tiles_at_capacity": int((counts == capacity).sum()),
         "timings_ms": timings,
         "fps": 1e3 / timings["e2e_ms"],
+        # the faster binning, expansion and sort: csort or the slot layout
+        "decode_winner": min(
+            ("csort", "slots"), key=lambda m: timings[
+                "binsort_ms" if m == "csort" else "binsort_slots_ms"]),
         "jax_keys": JAX_KEYS,
-        "jax_keys_without_counterpart": JAX_KEYS_WITHOUT_COUNTERPART,
     }
     return result, dict(data=data, counts=counts, grid_w=grid_w,
                         tiles_per_view=n_tiles)
@@ -175,8 +216,8 @@ def main(argv=None) -> dict:
     ap.add_argument("--capacity", type=int, default=1024)
     ap.add_argument("--out", default="raster_profile.json")
     ap.add_argument("--fast", action="store_true",
-                    help="the JAX tool skips its slow slot-decode variants; "
-                         "the port has one binning, so nothing is skipped")
+                    help="the JAX tool's 'scanu only'; the port has one "
+                         "slot layout, so nothing is skipped")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)

@@ -2,7 +2,8 @@
 
 Pixel ``(x + 0.5, y + 0.5)`` maps to the OpenGL camera-space direction
 ``((x + 0.5 - cx) / fx, -(y + 0.5 - cy) / fy, -1)``, rotated to world by
-``c2w[:3, :3]``.
+``c2w[:3, :3]``. ``sample_rays_at`` takes the rays at given flat pixel
+indices; ``sample_patch_indices`` draws dilated square patches of them.
 """
 from __future__ import annotations
 
@@ -40,6 +41,58 @@ def sample_rays(cameras: torch.Tensor, h: int, w: int, *, uv_offset=None,
             torch.linalg.norm(rays_d, dim=-1, keepdim=True), 1e-8)
     rays_o = c2w[..., None, :3, 3].expand(rays_d.shape)
     return rays_o, rays_d
+
+
+def sample_rays_at(cameras: torch.Tensor, inds: torch.Tensor, h: int, w: int,
+                   normalize: bool = True):
+    """``(rays_o, rays_d)``, each ``(..., N, 3)``, at the flat pixel indices
+    ``inds (..., N)`` (row-major over ``h x w``)."""
+    c2w = camera_c2w(cameras)
+    fx, fy, cx, cy, _, _ = camera_intrinsics(cameras, h=h, w=w)
+    xs = (inds % w).to(torch.float32) + 0.5
+    ys = torch.div(inds, w, rounding_mode="floor").to(torch.float32) + 0.5
+    x = (xs - cx[..., None]) / fx[..., None]
+    y = -(ys - cy[..., None]) / fy[..., None]
+    dirs = torch.stack([x, y, -torch.ones_like(x)], dim=-1)
+    rays_d = torch.einsum("...ij,...nj->...ni", c2w[..., :3, :3], dirs)
+    if normalize:
+        rays_d = rays_d / torch.clamp_min(
+            torch.linalg.norm(rays_d, dim=-1, keepdim=True), 1e-8)
+    rays_o = c2w[..., None, :3, 3].expand(rays_d.shape)
+    return rays_o, rays_d
+
+
+def patch_indices(mult: torch.Tensor, u_i: torch.Tensor, u_j: torch.Tensor,
+                  batch: int, n: int, p: int, h: int, w: int) -> torch.Tensor:
+    """The index arithmetic of ``sample_patch_indices`` on given draws:
+    ``batch * n / p^2`` patches, each ``p x p`` pixels ``mult`` apart (int,
+    in ``[1, min(h, w) // p]``) from the row and column offsets ``floor(u *
+    (size - p mult + mult))`` of the uniforms ``u_i``, ``u_j`` (float32).
+    Returns ``(batch, n)`` int64 flat indices."""
+    span = lambda size: (size - p * mult + mult).to(torch.float32)
+    off_i = torch.floor(u_i.to(torch.float32) * span(h)).to(torch.int64)
+    off_j = torch.floor(u_j.to(torch.float32) * span(w)).to(torch.int64)
+    ar = torch.arange(p, dtype=torch.int64, device=mult.device)
+    ii = ar[None, :] * mult[:, None] + off_i[:, None]              # rows
+    jj = ar[None, :] * mult[:, None] + off_j[:, None]              # cols
+    return (ii[:, :, None] * w + jj[:, None, :]).reshape(batch, n)
+
+
+def sample_patch_indices(generator: torch.Generator | None, batch: int,
+                         n: int, p: int, h: int, w: int,
+                         device=None) -> torch.Tensor:
+    """Random dilated-patch pixel indices ``(batch, n)``, ``n % p**2 ==
+    0``, drawn from ``generator`` (the reference's patch sampler for
+    patchwise rendering losses); ``patch_indices`` holds the arithmetic."""
+    if n % (p * p):
+        raise ValueError(f"n={n} is not a whole number of {p}x{p} patches")
+    num = batch * (n // (p * p))
+    dev = generator.device if generator is not None else device
+    mult = torch.randint(1, min(h, w) // p + 1, (num,), generator=generator,
+                         device=dev)
+    u_i = torch.rand(num, generator=generator, device=dev)
+    u_j = torch.rand(num, generator=generator, device=dev)
+    return patch_indices(mult, u_i, u_j, batch, n, p, h, w)
 
 
 def embed_rays(rays_o: torch.Tensor, rays_d: torch.Tensor) -> torch.Tensor:

@@ -674,17 +674,41 @@ def test_profile_train_step_and_its_trace(tmp_path):
 
 
 def test_raster_profile_keys(tmp_path):
+    """Every timing key of the JAX tool maps onto a stage the port times:
+    the JAX tool's five slot modes onto the port's one slot layout.
+    ``--fast`` (the JAX tool's "scanu only") is accepted and times the
+    same stages."""
+    jax_slot = {f"expand_{m}_ms" for m in ("scanu", "fscatter", "addcumsum",
+                                          "scan", "bsearch")} | {
+        "sub_prefix_ms", "sub_decode_scanu_ms", "sub_decode_scan_ms",
+        "sub_gather_cull_ms", "binsort_scanu_ms", "binsort_fscatter_ms",
+        "e2e_pallas_ms", "e2e_pallas_fscatter_ms"}
+    slot = {"expand_ms", "sub_prefix_ms", "sub_decode_ms",
+            "sub_gather_cull_ms", "binsort_slots_ms", "e2e_slots_ms"}
+    csort = {"project_ms", "bin_keys_ms", "sort_ms", "binsort_ms",
+             "segments_gather_ms", "kernel_ms", "compositor_ms", "e2e_ms",
+             "e2e_plain_ms"}
+    jax_tool = {"project_ms", "sort_ms", "segments_gather_ms", "kernel_ms",
+                "binsort_csort_ms", "e2e_pallas_csort_ms", "e2e_xla_ms"}
+    assert set(raster_profile.JAX_KEYS) == jax_tool | jax_slot
+    assert {raster_profile.JAX_KEYS[k] for k in jax_slot} == slot
+    assert not hasattr(raster_profile, "JAX_KEYS_WITHOUT_COUNTERPART")
     out = tmp_path / "r.json"
     res = raster_profile.main(["--n", "1500", "--size", "64", "--reps", "1",
                                "--device", "cpu", "--out", str(out)])
     assert json.load(open(out)) == res
     t = res["timings_ms"]
-    assert set(t) == {"project_ms", "bin_keys_ms", "sort_ms", "binsort_ms",
-                      "segments_gather_ms", "kernel_ms", "compositor_ms",
-                      "e2e_ms", "e2e_plain_ms"}
+    assert set(t) == csort | slot
     assert all(v > 0 for v in t.values())
     assert set(raster_profile.JAX_KEYS.values()) <= set(t)
-    assert not set(raster_profile.JAX_KEYS) & set(
-        raster_profile.JAX_KEYS_WITHOUT_COUNTERPART)
     assert 0 < res["instances_kept"] <= res["candidates_live"] <= \
         res["candidates"]
+    assert 0 < res["slots_live"] <= res["s_max"] == 6 * 1500
+    assert res["decode_winner"] == min(
+        ("csort", "slots"), key=lambda m: t["binsort_ms" if m == "csort"
+                                            else "binsort_slots_ms"])
+    fast = raster_profile.main(["--n", "1500", "--size", "64", "--reps",
+                                "1", "--device", "cpu", "--fast", "--out",
+                                str(out)])
+    assert set(fast["timings_ms"]) == csort | slot
+    assert fast["slots_live"] == res["slots_live"]

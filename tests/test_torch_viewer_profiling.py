@@ -14,6 +14,7 @@ import importlib.util
 import json
 import os
 import sys
+import zlib
 
 import numpy as np
 import pytest
@@ -144,13 +145,13 @@ def clip_towers():
     ptxt = random_params(jtxt, rng, jnp.asarray(jtok(["x"])))
     fenc, ftxt = jax.jit(jenc.apply), jax.jit(jtxt.apply)
 
-    def jax_clip_encode(pil_img, prompt):
+    def jax_clip_encode(pil_img, prompt, tokenizer=jtok):
         """``tools/compute_metrics.py::clip_encode`` on these towers."""
         img = np.asarray(pil_img.resize((224, 224))) / 127.5 - 1.0
         x = jnp.asarray(img.transpose(2, 0, 1))[None]
         with jax.default_matmul_precision("float32"):
             fi = fenc(pimg, x)
-            ft = ftxt(ptxt, jnp.asarray(jtok([prompt])))
+            ft = ftxt(ptxt, jnp.asarray(tokenizer([prompt])))
         ft = ft.mean(axis=1)
         a = fi / jnp.linalg.norm(fi, axis=-1, keepdims=True)
         b = ft / jnp.linalg.norm(ft, axis=-1, keepdims=True)
@@ -162,16 +163,25 @@ def clip_towers():
     return jax_clip_encode, image.eval(), text.eval()
 
 
+def fixed_tokens(prompts):
+    """CLIP-shaped ids ``(B, 77)`` (start, one id a word, end, end-padded)
+    from the words' CRC-32: the same ids in every process, where the
+    fallback tokenizer's ``hash`` is salted per process."""
+    out = np.full((len(prompts), 77), 49407, dtype=np.int32)
+    for i, prompt in enumerate(prompts):
+        ids = [49406] + [zlib.crc32(w.encode()) % 49406
+                         for w in prompt.split()] + [49407]
+        out[i, :len(ids)] = ids
+    return out
+
+
 def test_compute_metrics_clip_score(clip_towers):
     """``clip_scorer`` (224^2 resize, /127.5 - 1, NCHW, the image
     embedding against the token-mean text embedding) against the JAX
-    tool's ``clip_encode`` on the same towers, to ``CLIP_TOL``."""
-    from prometheus_torch.models import CLIPTokenizer
-
+    tool's ``clip_encode`` on the same towers and the same fixed token ids,
+    to ``CLIP_TOL``."""
     jax_clip_encode, image, text = clip_towers
-    with pytest.warns(UserWarning):
-        tok = CLIPTokenizer()
-    score = compute_metrics.clip_scorer(image, text, tok,
+    score = compute_metrics.clip_scorer(image, text, fixed_tokens,
                                         torch.device("cpu"))
     rng = np.random.default_rng(32)
     got, want = [], []
@@ -179,7 +189,7 @@ def test_compute_metrics_clip_score(clip_towers):
         pil = Image.fromarray((rng.random(hw + (3,)) * 255).astype(np.uint8))
         for prompt in ("a red car", "a wooden cabin in the snow"):
             got.append(score(pil, prompt))
-            want.append(jax_clip_encode(pil, prompt))
+            want.append(jax_clip_encode(pil, prompt, fixed_tokens))
     np.testing.assert_allclose(got, want, rtol=0, atol=CLIP_TOL)
     # the four scores differ: both the image and the text reach the score
     assert np.ptp(want) > 1e3 * CLIP_TOL
