@@ -4287,7 +4287,7 @@ def phase_gmldm_sample(seed: int, card: str, shapes: dict,
     shutil.rmtree(trace_dir, ignore_errors=True)
     t0 = time.perf_counter()
     with profiling.trace(str(trace_dir)):
-        with profiling.annotate("gmldm_sample"):
+        with profiling.span("gmldm_sample"):
             system.sample(cams, txt, unc, generator=g, **kw)
             torch.cuda.synchronize()
     traced_s = time.perf_counter() - t0

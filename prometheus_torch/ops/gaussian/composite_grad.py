@@ -19,6 +19,7 @@ from __future__ import annotations
 
 import torch
 
+from ... import profiling
 from .compositor import (composite_tiles_bwd, gather_rows,
                          run_compositor_kernel, sorted_tile_segments)
 from .projection import Projected, bbox_extents
@@ -62,11 +63,13 @@ class CompositeFunction(torch.autograd.Function):
         V, N = mean2d.shape[:2]
         proj = Projected(mean2d, conic, depth, radii[..., 0], validf > 0.5,
                          rx=radii[..., 1], ry=radii[..., 2])
-        data, idx, in_seg, counts = bin_views(proj, colors, opacities, img_h,
-                                              img_w, tile_size, capacity,
-                                              max_tiles)
-        rgb, dep, acc_a = run_compositor_kernel(data, counts, img_h, img_w,
-                                                tile_size)
+        with profiling.span("render.bin"):
+            data, idx, in_seg, counts = bin_views(
+                proj, colors, opacities, img_h, img_w, tile_size, capacity,
+                max_tiles)
+        with profiling.span("render.composite"):
+            rgb, dep, acc_a = run_compositor_kernel(data, counts, img_h,
+                                                    img_w, tile_size)
         ctx.save_for_backward(data, idx, in_seg, counts, dep, acc_a)
         ctx.geometry = (V, N, img_h, img_w, tile_size)
         return rgb, dep, acc_a

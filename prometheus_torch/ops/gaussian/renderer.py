@@ -19,6 +19,7 @@ from __future__ import annotations
 
 import torch
 
+from ... import profiling
 from ...utils.cameras import camera_intrinsics
 from .composite_grad import composite_tiled_grad
 from ...parallel.dist import all_gather_cat, get_rank, resolve_group, \
@@ -80,8 +81,9 @@ def render_gaussians(cameras: torch.Tensor, gaussians, h: int = 256,
     cameras = cameras.to(torch.float32)
     colors = features[:, :, 0, :]
     opac = opacity[..., 0]
-    proj = project_views(cameras, xyz, scales, rotations, opac, h, w, near,
-                         band)
+    with profiling.span("render.project"):
+        proj = project_views(cameras, xyz, scales, rotations, opac, h, w,
+                             near, band)
     if band is not None:
         h = band[1]
     rgb, depth, alpha = composite_tiled_grad(

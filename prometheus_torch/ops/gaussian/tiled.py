@@ -43,6 +43,7 @@ import os
 
 import torch
 
+from ... import profiling
 from .projection import ALPHA_CUTOFF, Projected, bbox_extents
 
 DEAD_KEY = 0xFFFFFFFF
@@ -447,12 +448,14 @@ def composite_tiled(proj: Projected, colors: torch.Tensor,
     if img_h % tile_size or img_w % tile_size:
         raise ValueError(f"{img_h}x{img_w} is not whole {tile_size}px tiles")
     grid_h, grid_w = img_h // tile_size, img_w // tile_size
-    sorted_tile, sorted_gauss = sorted_instances(
-        proj, tile_size, grid_w, grid_h, (max_tiles_y, max_tiles_x),
-        opacities=opacities)
-    idx, in_seg, counts = tile_segments(sorted_tile, sorted_gauss,
-                                        grid_w * grid_h, tile_capacity)
-    data = gather_rows(proj, colors, opacities, idx, in_seg)
-    rgb, depth, alpha = run_compositor_kernel(data, counts, img_h, img_w,
-                                              tile_size)
+    with profiling.span("render.bin"):
+        sorted_tile, sorted_gauss = sorted_instances(
+            proj, tile_size, grid_w, grid_h, (max_tiles_y, max_tiles_x),
+            opacities=opacities)
+        idx, in_seg, counts = tile_segments(sorted_tile, sorted_gauss,
+                                            grid_w * grid_h, tile_capacity)
+        data = gather_rows(proj, colors, opacities, idx, in_seg)
+    with profiling.span("render.composite"):
+        rgb, depth, alpha = run_compositor_kernel(data, counts, img_h, img_w,
+                                                  tile_size)
     return rgb[0], depth[0], alpha[0]

@@ -49,6 +49,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from .. import profiling
 from .dist import (all_gather_cat, all_reduce_, fsdp_param_spec, get_rank,
                    world_size)
 
@@ -311,7 +312,10 @@ def make_train_step(loss_fn: Callable, opt: torch.optim.Optimizer,
     holds. Returns ``train_step(state, batch) -> metrics``, which updates
     ``state`` in place; with ``grad_accum > 1`` the batch's leading axis
     splits into that many micro-batches, gradients are averaged and the
-    metrics are the last micro-batch's.
+    metrics are the last micro-batch's. The tracer sees the step as
+    ``train.step`` (unit: ``state.step``) around ``train.forward`` and
+    ``train.backward`` (each micro-batch), ``train.clip``,
+    ``train.optimizer`` and ``train.ema``.
 
     ``reduce`` (``"mean"`` or ``"sum"``) reduces the gradients, the model's
     floating buffers (averaged) and the metrics over ``group`` (None: the
@@ -321,36 +325,45 @@ def make_train_step(loss_fn: Callable, opt: torch.optim.Optimizer,
         raise ValueError(f"reduce must be 'mean' or 'sum', got {reduce!r}")
 
     def train_step(state: TrainState, batch: dict) -> dict:
+        with profiling.span("train.step", unit=state.step):
+            return step(state, batch)
+
+    def step(state: TrainState, batch: dict) -> dict:
         params = (list(sharding.params.values()) if sharding is not None
                   else [p for g in opt.param_groups for p in g["params"]])
         for p in params:
             p.grad = None
         total = 0.0
         for mb in _micro_batches(batch, grad_accum):
-            loss, metrics = loss_fn(mb)
-            (loss / grad_accum).backward()
+            with profiling.span("train.forward"):
+                loss, metrics = loss_fn(mb)
+            with profiling.span("train.backward"):
+                (loss / grad_accum).backward()
             total = total + loss.detach()
-        for p in params:
-            if p.grad is None:            # no gradient reached it: zero
-                p.grad = torch.zeros_like(p)
-        grads = [p.grad for p in params]
-        if reduce is not None:
-            all_reduce_(grads, group)
-            if reduce == "mean":
-                torch._foreach_div_(grads, float(world_size(group)))
-        norm = global_norm(grads)
-        # optax's arithmetic: t / norm * clip above the limit, t below it
-        # (t / 1 * 1), without a host sync
-        below = norm < grad_clip
-        one = torch.ones_like(norm)
-        torch._foreach_div_(grads, torch.where(below, one, norm))
-        torch._foreach_mul_(grads, torch.where(below, one, one * grad_clip))
-        if sharding is not None:
-            sharding.take_grads()
-        opt.step()
-        if sharding is not None:
-            sharding.put_params()
-        with torch.no_grad():
+        with profiling.span("train.clip"):
+            for p in params:
+                if p.grad is None:            # no gradient reached it: zero
+                    p.grad = torch.zeros_like(p)
+            grads = [p.grad for p in params]
+            if reduce is not None:
+                all_reduce_(grads, group)
+                if reduce == "mean":
+                    torch._foreach_div_(grads, float(world_size(group)))
+            norm = global_norm(grads)
+            # optax's arithmetic: t / norm * clip above the limit, t below
+            # it (t / 1 * 1), without a host sync
+            below = norm < grad_clip
+            one = torch.ones_like(norm)
+            torch._foreach_div_(grads, torch.where(below, one, norm))
+            torch._foreach_mul_(grads, torch.where(below, one,
+                                                   one * grad_clip))
+        with profiling.span("train.optimizer"):
+            if sharding is not None:
+                sharding.take_grads()
+            opt.step()
+            if sharding is not None:
+                sharding.put_params()
+        with profiling.span("train.ema"), torch.no_grad():
             src = (sharding.shards if sharding is not None
                    else dict(state.model.named_parameters()))
             ema = list(state.ema_params.values())

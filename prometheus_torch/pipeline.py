@@ -34,6 +34,7 @@ from typing import Callable
 import torch
 from torch import nn
 
+from . import profiling
 from .models import (CLIPImageEncoder, CLIPTokenizer, GSDecoderModel,
                      MVLDMModel, TrajDiTModel, make_depth_fn)
 from .models.traj_dit import camera_to_token
@@ -62,16 +63,19 @@ SMALL_CLIP_IMAGE = dict(image_size=28, width=64, num_heads=4, num_layers=2)
 
 def stage_timer(device: torch.device, timings: dict) -> Callable:
     """``mark(stage)`` records the seconds since the previous mark (or
-    since this call) under ``stage``, the card synchronised first."""
-    t0 = time.perf_counter()
+    since this call) under ``stage``, the card synchronised first, and
+    the same interval as the tracer's ``prometheus.stage.<stage>`` span
+    (``profiling.stage``)."""
+    t0, w0 = time.perf_counter(), profiling.now_ns()
 
     def mark(stage: str) -> None:
-        nonlocal t0
+        nonlocal t0, w0
         if device.type == "cuda":
             torch.cuda.synchronize(device)
-        t1 = time.perf_counter()
+        t1, w1 = time.perf_counter(), profiling.now_ns()
         timings[stage] = t1 - t0
-        t0 = t1
+        profiling.stage(stage, w0, w1)
+        t0, w0 = t1, w1
 
     return mark
 
@@ -188,66 +192,72 @@ class PrometheusPipeline:
                              f"cfg_interval_frac={cfg_interval_frac!r})")
         if isinstance(text, str):
             text = [text]
-        dev = self.device
-        timings = {}
-        mark = stage_timer(dev, timings)
-        text_emb = self.encode_text(text)
-        uncond_emb = self.encode_text([negative_text]).expand(text_emb.shape)
-        if view_shard_group is not None:
-            # one text embedding for every rank: the fallback tokenizer's
-            # ids differ between processes
-            uncond_emb = uncond_emb.contiguous()
-            broadcast_([text_emb, uncond_emb], view_shard_group)
-        mark("encode_text")
-        if cameras is None:
-            dense = self.generate_trajectory(
-                text_emb, generator, num_steps=num_traj_steps,
-                image_size=image_size, noise=traj_noise)
-            cameras = self.sparse_views(dense, num_views)
-            mark("trajectory")
-        else:
-            cameras = cameras.to(device=dev, dtype=torch.float32)
-            dense = cameras
-        hw = latent_hw or self.mvldm.model.latent_size
-        kw = dict(generator=generator, num_inference_steps=num_inference_steps,
-                  guidance_scale=guidance_scale, guidance_type=guidance_type,
-                  cfg_rescale=cfg_rescale, latent_hw=hw, noise=noise)
-        if use_3d_mode_every_m_steps > 0:
-            model = self.mvldm.model
-            latents = self.mvldm.sample_with_3d_mode(
-                self.decode_gaussians, cameras, text_emb, uncond_emb,
-                use_3d_mode_every_m_steps=use_3d_mode_every_m_steps,
-                render_size=hw * (model.image_size // model.latent_size), **kw)
-        elif view_shard_group is not None:
-            latents = self.mvldm.sample_view_sharded(
-                view_shard_group, cameras, text_emb, uncond_emb,
-                sampler=sampler, cfg_interval_frac=cfg_interval_frac, **kw)
-        else:
-            latents = self.mvldm.sample(
-                cameras, text_emb, uncond_emb, sampler=sampler,
-                cfg_interval_frac=cfg_interval_frac, **kw)
-        mark("sample")
-        if view_shard_group is not None:
-            result = self.decode_and_render_view_sharded(
-                view_shard_group, latents, cameras, render_size=render_size,
-                tile_capacity=render_tile_capacity, mark=mark)
-            result["dense_cameras"] = dense
-        else:
-            result = self._decode_and_render(
-                latents, cameras, dense, render_size, mark,
-                tile_capacity=render_tile_capacity)
-        if refiner is not None:
-            gaussians_sds = refiner.refine_gaussians(
-                result["gaussians"], text_emb[:1], uncond_emb[:1], dense,
-                generator=generator)
-            img_sds, dep_sds, _ = self.render_views_chunked(
-                cameras, gaussians_sds, h=render_size, w=render_size)
-            result.update(gaussians_sds=gaussians_sds,
-                          images_sds_gs_render=img_sds,
-                          depths_sds_gs_render=dep_sds)
-            mark("refine")
-        result["timings"] = timings
-        return result
+        with profiling.span("t2s.batch", unit=True, batch=len(text)):
+            dev = self.device
+            timings = {}
+            mark = stage_timer(dev, timings)
+            text_emb = self.encode_text(text)
+            uncond_emb = self.encode_text([negative_text]).expand(
+                text_emb.shape)
+            if view_shard_group is not None:
+                # one text embedding for every rank: the fallback tokenizer's
+                # ids differ between processes
+                uncond_emb = uncond_emb.contiguous()
+                broadcast_([text_emb, uncond_emb], view_shard_group)
+            mark("encode_text")
+            if cameras is None:
+                dense = self.generate_trajectory(
+                    text_emb, generator, num_steps=num_traj_steps,
+                    image_size=image_size, noise=traj_noise)
+                cameras = self.sparse_views(dense, num_views)
+                mark("trajectory")
+            else:
+                cameras = cameras.to(device=dev, dtype=torch.float32)
+                dense = cameras
+            hw = latent_hw or self.mvldm.model.latent_size
+            kw = dict(generator=generator,
+                      num_inference_steps=num_inference_steps,
+                      guidance_scale=guidance_scale,
+                      guidance_type=guidance_type,
+                      cfg_rescale=cfg_rescale, latent_hw=hw, noise=noise)
+            if use_3d_mode_every_m_steps > 0:
+                model = self.mvldm.model
+                latents = self.mvldm.sample_with_3d_mode(
+                    self.decode_gaussians, cameras, text_emb, uncond_emb,
+                    use_3d_mode_every_m_steps=use_3d_mode_every_m_steps,
+                    render_size=hw * (model.image_size // model.latent_size),
+                    **kw)
+            elif view_shard_group is not None:
+                latents = self.mvldm.sample_view_sharded(
+                    view_shard_group, cameras, text_emb, uncond_emb,
+                    sampler=sampler, cfg_interval_frac=cfg_interval_frac, **kw)
+            else:
+                latents = self.mvldm.sample(
+                    cameras, text_emb, uncond_emb, sampler=sampler,
+                    cfg_interval_frac=cfg_interval_frac, **kw)
+            mark("sample")
+            if view_shard_group is not None:
+                result = self.decode_and_render_view_sharded(
+                    view_shard_group, latents, cameras,
+                    render_size=render_size,
+                    tile_capacity=render_tile_capacity, mark=mark)
+                result["dense_cameras"] = dense
+            else:
+                result = self._decode_and_render(
+                    latents, cameras, dense, render_size, mark,
+                    tile_capacity=render_tile_capacity)
+            if refiner is not None:
+                gaussians_sds = refiner.refine_gaussians(
+                    result["gaussians"], text_emb[:1], uncond_emb[:1], dense,
+                    generator=generator)
+                img_sds, dep_sds, _ = self.render_views_chunked(
+                    cameras, gaussians_sds, h=render_size, w=render_size)
+                result.update(gaussians_sds=gaussians_sds,
+                              images_sds_gs_render=img_sds,
+                              depths_sds_gs_render=dep_sds)
+                mark("refine")
+            result["timings"] = timings
+            return result
 
     @torch.no_grad()
     def generate_image_to_3d(self, ref_images: torch.Tensor,
@@ -279,42 +289,46 @@ class PrometheusPipeline:
         if self.image_encoder is None or self.depth_fn is None:
             raise ValueError("image-to-3D needs image_encoder and depth_fn "
                              "(attach_image_to_3d)")
-        dev = self.device
-        timings = {}
-        mark = stage_timer(dev, timings)
-        ref_images = ref_images.to(device=dev, dtype=torch.float32)
-        cameras = cameras.to(device=dev, dtype=torch.float32)
-        B, N = cameras.shape[:2]
-        R = ref_images.shape[1]
-        hw = latent_hw or self.mvldm.model.latent_size
-        flat = ref_images.reshape((B * R,) + ref_images.shape[2:])
-        cond = self.image_encoder(flat).reshape(B, R, -1)
-        uncond = self.image_encoder(torch.zeros_like(flat)).reshape(B, R, -1)
-        mark("image_encoder")
-        disp = self.depth_fn(ref_images)
-        mark("depth")
-        encode = self.mvldm.model.encode_image
-        ref_rd = torch.cat([encode(ref_images),
-                            encode((disp * 2.0 - 1.0).repeat(1, 1, 3, 1, 1))],
-                           dim=2)
-        view_mask = torch.zeros(B, N, 1, hw, hw, device=dev)
-        ref_latents = torch.zeros((B, N) + ref_rd.shape[2:], device=dev,
-                                  dtype=ref_rd.dtype)
-        for k, idx in enumerate(ref_idx):
-            view_mask[:, idx] = 1.0
-            ref_latents[:, idx] = ref_rd[:, k]
-        mark("encode_refs")
-        latents = self.mvldm.sample(
-            cameras, cond, uncond, generator=generator,
-            num_inference_steps=num_inference_steps,
-            guidance_scale=guidance_scale, guidance_type="joint",
-            cfg_rescale=cfg_rescale, latent_hw=hw, noise=noise,
-            view_mask=view_mask, ref_latents=ref_latents)
-        mark("sample")
-        result = self._decode_and_render(latents, cameras, cameras,
-                                         render_size, mark)
-        result["timings"] = timings
-        return result
+        with profiling.span("t2s.batch", unit=True,
+                            batch=ref_images.shape[0]):
+            dev = self.device
+            timings = {}
+            mark = stage_timer(dev, timings)
+            ref_images = ref_images.to(device=dev, dtype=torch.float32)
+            cameras = cameras.to(device=dev, dtype=torch.float32)
+            B, N = cameras.shape[:2]
+            R = ref_images.shape[1]
+            hw = latent_hw or self.mvldm.model.latent_size
+            flat = ref_images.reshape((B * R,) + ref_images.shape[2:])
+            cond = self.image_encoder(flat).reshape(B, R, -1)
+            uncond = self.image_encoder(torch.zeros_like(flat)).reshape(
+                B, R, -1)
+            mark("image_encoder")
+            disp = self.depth_fn(ref_images)
+            mark("depth")
+            encode = self.mvldm.model.encode_image
+            ref_rd = torch.cat([encode(ref_images),
+                                encode((disp * 2.0 - 1.0).repeat(1, 1, 3, 1,
+                                                                  1))],
+                               dim=2)
+            view_mask = torch.zeros(B, N, 1, hw, hw, device=dev)
+            ref_latents = torch.zeros((B, N) + ref_rd.shape[2:], device=dev,
+                                      dtype=ref_rd.dtype)
+            for k, idx in enumerate(ref_idx):
+                view_mask[:, idx] = 1.0
+                ref_latents[:, idx] = ref_rd[:, k]
+            mark("encode_refs")
+            latents = self.mvldm.sample(
+                cameras, cond, uncond, generator=generator,
+                num_inference_steps=num_inference_steps,
+                guidance_scale=guidance_scale, guidance_type="joint",
+                cfg_rescale=cfg_rescale, latent_hw=hw, noise=noise,
+                view_mask=view_mask, ref_latents=ref_latents)
+            mark("sample")
+            result = self._decode_and_render(latents, cameras, cameras,
+                                             render_size, mark)
+            result["timings"] = timings
+            return result
 
     def _decode_and_render(self, latents: torch.Tensor, cameras: torch.Tensor,
                            dense: torch.Tensor, render_size: int,

@@ -61,6 +61,7 @@ import numpy as np
 import torch
 
 from .inference import pipeline_from_args, sample_generator
+from . import profiling
 from .models import CLIPTokenizer
 from .models.traj_dit import TOKEN_DIM
 from .parallel.dist import (all_reduce_, broadcast_, broadcast_object,
@@ -87,7 +88,8 @@ def generate_batch(pipe, prompts: list[str], generator: torch.Generator, *,
                    latent_hw: int | None = None,
                    traj_noise: torch.Tensor | None = None,
                    noise: torch.Tensor | None = None, group=None,
-                   shard_views: bool = False) -> dict | None:
+                   shard_views: bool = False,
+                   jobs: list | None = None) -> dict | None:
     """The whole pipeline on a batch of B prompts.
 
     ``traj_noise (B, 29, 11)`` and ``noise (B, N, 8, h, w)``: TrajDiT's and
@@ -104,18 +106,20 @@ def generate_batch(pipe, prompts: list[str], generator: torch.Generator, *,
     rank returns the whole result. Otherwise each rank runs its contiguous
     share of the prompts with its rows of the noise the whole batch draws
     (so the ranks compute what one process does), and rank 0 returns the
-    gathered results, on the CPU (the other ranks None)."""
+    gathered results, on the CPU (the other ranks None). ``jobs``: the
+    ids of the HTTP requests the prompts came from, for the tracer's
+    ``t2s.batch`` span."""
     kw = dict(num_views=num_views, num_inference_steps=num_inference_steps,
               guidance_scale=guidance_scale, cfg_rescale=cfg_rescale,
               render_size=render_size, image_size=image_size,
               latent_hw=latent_hw or pipe.mvldm.model.latent_size)
     if group is None:
         return _generate(pipe, prompts, generator, traj_noise=traj_noise,
-                         noise=noise, **kw)
+                         noise=noise, jobs=jobs, **kw)
     if shard_views:
         return agreed(lambda: _generate(
             pipe, prompts, generator, traj_noise=traj_noise, noise=noise,
-            group=group, **kw), group, pipe.device)
+            group=group, jobs=jobs, **kw), group, pipe.device)
     B, dev, hw = len(prompts), pipe.device, kw["latent_hw"]
     if traj_noise is None:
         traj_noise = torch.randn((B, pipe.traj.num_tokens, TOKEN_DIM),
@@ -131,7 +135,8 @@ def generate_batch(pipe, prompts: list[str], generator: torch.Generator, *,
         if mine.stop == mine.start:
             return None
         out = _generate(pipe, prompts[mine], generator,
-                        traj_noise=traj_noise[mine], noise=noise[mine], **kw)
+                        traj_noise=traj_noise[mine], noise=noise[mine],
+                        jobs=jobs and jobs[mine], **kw)
         return {k: (tuple(g.cpu() for g in v) if k == "gaussians" else
                     v if k == "timings" else v.cpu()) for k, v in out.items()}
 
@@ -176,50 +181,55 @@ def agreed(fn, group, device):
 
 def _generate(pipe, prompts, generator, *, num_views, num_inference_steps,
               guidance_scale, cfg_rescale, render_size, image_size,
-              latent_hw, traj_noise, noise, group=None) -> dict:
+              latent_hw, traj_noise, noise, group=None, jobs=None) -> dict:
     """``generate_batch`` in one process, or view-sharded over
-    ``group``."""
-    timings = {}
-    mark = stage_timer(pipe.device, timings)
-    text_emb = pipe.encode_text(prompts)
-    uncond = pipe.encode_text([""]).expand(text_emb.shape).contiguous()
-    if group is not None:
-        broadcast_([text_emb, uncond], group)
-    mark("encode_text")
-    dense = pipe.generate_trajectory(text_emb, generator,
-                                     num_steps=TRAJ_STEPS,
-                                     image_size=image_size, noise=traj_noise)
-    cameras = pipe.sparse_views(dense, num_views)
-    mark("trajectory")
-    kw = dict(generator=generator, num_inference_steps=num_inference_steps,
-              guidance_scale=guidance_scale, guidance_type="joint",
-              cfg_rescale=cfg_rescale, latent_hw=latent_hw, noise=noise)
-    if group is not None:
-        latents = pipe.mvldm.sample_view_sharded(group, cameras, text_emb,
-                                                 uncond, **kw)
-        mark("sample")
-        res = pipe.decode_and_render_view_sharded(
-            group, latents, cameras, render_size=render_size, mark=mark)
-        gaussians, imgs, deps = (res["gaussians"], res["images_gs_render"],
-                                 res["depths_gs_render"])
-    else:
-        latents = pipe.mvldm.sample(cameras, text_emb, uncond, **kw)
-        mark("sample")
-        gaussians = pipe.decode_gaussians(latents, cameras)
-        mark("decode_gaussians")
-        imgs, deps, _ = pipe.render_views_chunked(
-            cameras, gaussians, h=render_size, w=render_size)
-        mark("render")
-    return {"cameras": cameras, "dense_cameras": dense,
-            "latents_pred": latents, "gaussians": gaussians,
-            "images_gs_render": imgs, "depths_gs_render": deps,
-            "timings": timings}
+    ``group``, inside the tracer's ``t2s.batch`` span (``jobs``: the HTTP
+    requests' ids)."""
+    with profiling.span("t2s.batch", unit=True, batch=len(prompts),
+                        jobs=jobs):
+        timings = {}
+        mark = stage_timer(pipe.device, timings)
+        text_emb = pipe.encode_text(prompts)
+        uncond = pipe.encode_text([""]).expand(text_emb.shape).contiguous()
+        if group is not None:
+            broadcast_([text_emb, uncond], group)
+        mark("encode_text")
+        dense = pipe.generate_trajectory(text_emb, generator,
+                                         num_steps=TRAJ_STEPS,
+                                         image_size=image_size,
+                                         noise=traj_noise)
+        cameras = pipe.sparse_views(dense, num_views)
+        mark("trajectory")
+        kw = dict(generator=generator, num_inference_steps=num_inference_steps,
+                  guidance_scale=guidance_scale, guidance_type="joint",
+                  cfg_rescale=cfg_rescale, latent_hw=latent_hw, noise=noise)
+        if group is not None:
+            latents = pipe.mvldm.sample_view_sharded(group, cameras, text_emb,
+                                                     uncond, **kw)
+            mark("sample")
+            res = pipe.decode_and_render_view_sharded(
+                group, latents, cameras, render_size=render_size, mark=mark)
+            gaussians, imgs, deps = (res["gaussians"], res["images_gs_render"],
+                                     res["depths_gs_render"])
+        else:
+            latents = pipe.mvldm.sample(cameras, text_emb, uncond, **kw)
+            mark("sample")
+            gaussians = pipe.decode_gaussians(latents, cameras)
+            mark("decode_gaussians")
+            imgs, deps, _ = pipe.render_views_chunked(
+                cameras, gaussians, h=render_size, w=render_size)
+            mark("render")
+        return {"cameras": cameras, "dense_cameras": dense,
+                "latents_pred": latents, "gaussians": gaussians,
+                "images_gs_render": imgs, "depths_gs_render": deps,
+                "timings": timings}
 
 
 def run_group_message(pipe, msg: dict, group=None) -> dict | None:
     """One dispatched group on this rank: ``msg`` holds its prompts, the
-    seed of its first request, its shape ``(steps, views, render_size)``
-    and whether it shards views. Draws: see the module docstring."""
+    seed of its first request, its shape ``(steps, views, render_size)``,
+    whether it shards views and its requests' ids (``jobs``). Draws: see
+    the module docstring."""
     steps, views, rsize = msg["shape"]
     n, dev = len(msg["prompts"]), pipe.device
     g = (torch.Generator(device=dev).manual_seed(msg["seed"]) if n == 1
@@ -229,7 +239,8 @@ def run_group_message(pipe, msg: dict, group=None) -> dict | None:
                           num_inference_steps=steps, render_size=rsize,
                           image_size=model.image_size,
                           latent_hw=model.latent_size, group=group,
-                          shard_views=msg["shard_views"])
+                          shard_views=msg["shard_views"],
+                          jobs=msg.get("jobs"))
 
 
 def follow_dispatcher(pipe, group) -> int:
@@ -323,6 +334,7 @@ def serve_http(pipe, port: int, *, export_dir: str, num_views: int,
         n_real = len(jobs_)
         msg = {"prompts": [j["prompt"] for j in jobs_],
                "seed": jobs_[0]["seed"], "shape": shape,
+               "jobs": [j["id"] for j in jobs_],
                "shard_views": (group is not None and n_real == 1 and W > 1
                                and shape[1] % W == 0)}
         t0 = time.time()

@@ -17,6 +17,7 @@ from typing import Callable
 
 import torch
 
+from .. import profiling
 from ..models.gm_ldm import GMLDMModel
 from ..ops.gaussian import convert_gaussians, render_gaussians
 from ..ops.schedulers import Schedule, make_schedule
@@ -115,15 +116,17 @@ class GMLDMSystem:
         txt = torch.cat([text_embeddings, uncond_text_embeddings], 0)
         x0 = x
         for i in range(num_inference_steps):
-            sigma, sigma_next = sigmas[i], sigmas[i + 1]
-            x_in = torch.cat([self.schedule.c_in(sigma) * x, rm], dim=2)
-            t = self.schedule.c_noise(sigma).expand(2 * B, N)
-            with self._autocast(dev):
-                out = self.model.denoise(torch.cat([x_in, x_in], 0), txt, t)
-            cond, uncond = out.float().chunk(2, dim=0)
-            guided = uncond + guidance_scale * (cond - uncond)
-            x0 = self.schedule.denoise_output_to_x0(x, guided, sigma)
-            x = self.schedule.euler_step(x, x0, sigma, sigma_next)
+            with profiling.span("sampler.step"):
+                sigma, sigma_next = sigmas[i], sigmas[i + 1]
+                x_in = torch.cat([self.schedule.c_in(sigma) * x, rm], dim=2)
+                t = self.schedule.c_noise(sigma).expand(2 * B, N)
+                with self._autocast(dev):
+                    out = self.model.denoise(torch.cat([x_in, x_in], 0), txt,
+                                             t)
+                cond, uncond = out.float().chunk(2, dim=0)
+                guided = uncond + guidance_scale * (cond - uncond)
+                x0 = self.schedule.denoise_output_to_x0(x, guided, sigma)
+                x = self.schedule.euler_step(x, x0, sigma, sigma_next)
         mark("denoise")
         with self._autocast(dev):
             raw = self.model.decode_raw(x0, rm)

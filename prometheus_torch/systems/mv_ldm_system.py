@@ -47,6 +47,7 @@ from typing import Callable
 import torch
 import torch.nn.functional as F
 
+from .. import profiling
 from ..models.mv_ldm import MVLDMModel
 from ..models.unet_mv import precompute_text_kv
 from ..ops.gaussian import convert_gaussians, render_gaussians
@@ -247,22 +248,24 @@ class MVLDMSystem:
         x0 = x
         x0_prev, sigma_prev, has_prev = torch.zeros_like(x), sigmas[0], False
         for i in range(num_inference_steps):
-            gtype = guidance_type if i < n_cfg else "none"
-            sigma, sigma_next = sigmas[i], sigmas[i + 1]
-            out = self._guided_output(
-                x, sigma, text_embeddings, uncond_text_embeddings, pose_emb,
-                uncond_pose_emb, gtype, guidance_scale, cfg_rescale,
-                text_kv=kv[gtype], view_group=view_group)
-            x0 = self.schedule.denoise_output_to_x0(x, out, sigma)
-            if ref_latents is not None and view_mask is not None:
-                x0 = torch.where(view_mask[:, :, :1] > 0.5,
-                                 ref_latents.to(x0), x0)
-            if sampler == "dpmpp_2m":
-                x = self.schedule.dpmpp_2m_step(x, x0, x0_prev, sigma_prev,
-                                                sigma, sigma_next, has_prev)
-            else:
-                x = self.schedule.euler_step(x, x0, sigma, sigma_next)
-            x0_prev, sigma_prev, has_prev = x0, sigma, True
+            with profiling.span("sampler.step"):
+                gtype = guidance_type if i < n_cfg else "none"
+                sigma, sigma_next = sigmas[i], sigmas[i + 1]
+                out = self._guided_output(
+                    x, sigma, text_embeddings, uncond_text_embeddings,
+                    pose_emb, uncond_pose_emb, gtype, guidance_scale,
+                    cfg_rescale, text_kv=kv[gtype], view_group=view_group)
+                x0 = self.schedule.denoise_output_to_x0(x, out, sigma)
+                if ref_latents is not None and view_mask is not None:
+                    x0 = torch.where(view_mask[:, :, :1] > 0.5,
+                                     ref_latents.to(x0), x0)
+                if sampler == "dpmpp_2m":
+                    x = self.schedule.dpmpp_2m_step(
+                        x, x0, x0_prev, sigma_prev, sigma, sigma_next,
+                        has_prev)
+                else:
+                    x = self.schedule.euler_step(x, x0, sigma, sigma_next)
+                x0_prev, sigma_prev, has_prev = x0, sigma, True
         return x0
 
     @torch.no_grad()
@@ -360,24 +363,26 @@ class MVLDMSystem:
             text_embeddings, uncond_text_embeddings, "none", N)
         x0 = x
         for i in range(num_inference_steps):
-            sigma, sigma_next = sigmas[i], sigmas[i + 1]
-            use_3d = m > 0 and (num_inference_steps - 1 - i) % m == 0
-            if use_3d:
-                out = self._guided_output(
-                    x, sigma, text_embeddings, uncond_text_embeddings,
-                    pose_emb, uncond_pose_emb, "none", 1.0, 0.0, text_kv=kv_u)
-                x0 = self.schedule.denoise_output_to_x0(x, out, sigma)
-                gaussians = decode_gaussians(x0, cameras)
-                imgs, deps, _ = render_gaussians(cameras, gaussians,
-                                                 h=render_size, w=render_size)
-                x0 = self.render_to_latent(imgs, deps)
-            else:
-                out = self._guided_output(
-                    x, sigma, text_embeddings, uncond_text_embeddings,
-                    pose_emb, uncond_pose_emb, guidance_type, guidance_scale,
-                    cfg_rescale, text_kv=kv_g)
-                x0 = self.schedule.denoise_output_to_x0(x, out, sigma)
-            x = self.schedule.euler_step(x, x0, sigma, sigma_next)
+            with profiling.span("sampler.step"):
+                sigma, sigma_next = sigmas[i], sigmas[i + 1]
+                use_3d = m > 0 and (num_inference_steps - 1 - i) % m == 0
+                if use_3d:
+                    out = self._guided_output(
+                        x, sigma, text_embeddings, uncond_text_embeddings,
+                        pose_emb, uncond_pose_emb, "none", 1.0, 0.0,
+                        text_kv=kv_u)
+                    x0 = self.schedule.denoise_output_to_x0(x, out, sigma)
+                    gaussians = decode_gaussians(x0, cameras)
+                    imgs, deps, _ = render_gaussians(
+                        cameras, gaussians, h=render_size, w=render_size)
+                    x0 = self.render_to_latent(imgs, deps)
+                else:
+                    out = self._guided_output(
+                        x, sigma, text_embeddings, uncond_text_embeddings,
+                        pose_emb, uncond_pose_emb, guidance_type,
+                        guidance_scale, cfg_rescale, text_kv=kv_g)
+                    x0 = self.schedule.denoise_output_to_x0(x, out, sigma)
+                x = self.schedule.euler_step(x, x0, sigma, sigma_next)
         return x0
 
     @torch.no_grad()

@@ -16,6 +16,7 @@ import dataclasses
 
 import torch
 
+from .. import profiling
 from ..models.traj_dit import (TOKEN_DIM, TrajDiTModel, camera_to_token,
                                token_to_camera)
 from ..ops.schedulers import DDIMSchedule, make_ddim
@@ -45,13 +46,14 @@ class TrajDiTSystem:
         x = noise.to(device=dev, dtype=torch.float32)
         step = self.schedule.num_train_timesteps // num_inference_steps
         for t in self.schedule.timesteps(num_inference_steps):
-            tb = torch.full((B,), float(t), device=dev)
-            pred = self.model(x, text_embeddings, tb).float()
-            quat = pred[..., :4]
-            quat = quat / torch.clamp_min(
-                torch.linalg.norm(quat, dim=-1, keepdim=True), 1e-8)
-            pred = torch.cat([quat, pred[..., 4:]], dim=-1)
-            x = self.schedule.step(x, pred, t, t - step)
+            with profiling.span("traj.step"):
+                tb = torch.full((B,), float(t), device=dev)
+                pred = self.model(x, text_embeddings, tb).float()
+                quat = pred[..., :4]
+                quat = quat / torch.clamp_min(
+                    torch.linalg.norm(quat, dim=-1, keepdim=True), 1e-8)
+                pred = torch.cat([quat, pred[..., 4:]], dim=-1)
+                x = self.schedule.step(x, pred, t, t - step)
         return x
 
     @torch.no_grad()

@@ -14,6 +14,13 @@ level), span the first start to the last end::
 
     python -m prometheus_torch.tools.parse_trace TRACE_DIR_OR_JSON \\
         [--top 30] [--plane stream] [--line kernel]
+
+``--gaps`` lists the device's idle gaps instead: the stretches between
+the first and the last kernel, copy or set (of any stream) where none
+runs, each named by the innermost ``prometheus.*`` span of the tracer
+(``prometheus_torch.profiling``) open on the host at the gap's middle
+(``prometheus.gc`` among them; ``(no span)`` where none is), and the idle
+seconds summed by span.
 """
 from __future__ import annotations
 
@@ -51,9 +58,7 @@ def summarize(path: str, top: int = 40, plane: str = "",
     ms, count], ...]}}}`` of one Chrome trace, the complete (``"ph": "X"``)
     events only; ``plane`` and ``line`` are case-insensitive substring
     filters."""
-    with open(path) as fp:
-        doc = json.load(fp)
-    events = doc["traceEvents"] if isinstance(doc, dict) else doc
+    events = _load_events(path)
     agg = defaultdict(lambda: defaultdict(lambda: [0.0, 0]))
     spans = defaultdict(lambda: [float("inf"), float("-inf")])
     for ev in events:
@@ -82,6 +87,88 @@ def summarize(path: str, top: int = 40, plane: str = "",
     return out
 
 
+def _load_events(path: str) -> list:
+    with open(path) as fp:
+        doc = json.load(fp)
+    return doc["traceEvents"] if isinstance(doc, dict) else doc
+
+
+def idle_gaps(path: str, top: int = 10) -> dict:
+    """``{"busy_ms", "window_ms", "idle_ms", "gaps", "by_span": [[name,
+    idle ms, gaps], ...], "longest": [[name, ms], ...]}`` of one Chrome
+    trace: the device's busy time (the union of its kernels', copies' and
+    sets' intervals), the window from the first of them to the last, and
+    the idle gaps inside it by the innermost ``prometheus.*`` span open on
+    the host at each gap's middle, largest first (``top`` longest
+    gaps)."""
+    dev, spans = [], []
+    for ev in _load_events(path):
+        if ev.get("ph") != "X" or "dur" not in ev:
+            continue
+        t0 = float(ev.get("ts", 0.0))
+        t1 = t0 + float(ev["dur"])
+        if ev.get("cat") in DEVICE_CATS:
+            if ev["cat"] != "gpu_user_annotation":
+                dev.append((t0, t1))
+        elif str(ev.get("name", "")).startswith("prometheus."):
+            spans.append((t0, t1, ev["name"]))
+    return gaps_by_span(dev, spans, top)
+
+
+def gaps_by_span(dev: list, spans: list, top: int = 10) -> dict:
+    """``idle_gaps`` of device intervals ``dev`` ``[(start, end)]`` and
+    host spans ``[(start, end, name)]``, all in us (the tracer's
+    in-memory spans, on the profiler's clock, go in as they are, in ns /
+    1e3)."""
+    out = {"busy_ms": 0.0, "window_ms": 0.0, "idle_ms": 0.0, "gaps": 0,
+           "by_span": [], "longest": []}
+    if not dev:
+        return out
+    dev = sorted(dev)
+    merged = [list(dev[0])]
+    for t0, t1 in dev[1:]:
+        if t0 > merged[-1][1]:
+            merged.append([t0, t1])
+        else:
+            merged[-1][1] = max(merged[-1][1], t1)
+    # one sweep over the gaps' middles (in order) and the spans by start
+    spans = sorted(spans)
+    gaps, open_, k = [], [], 0
+    for (_, a), (b, _) in zip(merged, merged[1:]):
+        mid = (a + b) / 2
+        while k < len(spans) and spans[k][0] <= mid:
+            open_.append(spans[k])
+            k += 1
+        open_ = [sp for sp in open_ if sp[1] >= mid]
+        inside = min(open_, key=lambda sp: sp[1] - sp[0], default=None)
+        gaps.append((inside[2] if inside else "(no span)", b - a))
+    by = defaultdict(lambda: [0.0, 0])
+    for name, us in gaps:
+        by[name][0] += us
+        by[name][1] += 1
+    out.update(
+        busy_ms=sum(e - s for s, e in merged) / 1e3,
+        window_ms=(merged[-1][1] - merged[0][0]) / 1e3,
+        idle_ms=sum(us for _, us in gaps) / 1e3, gaps=len(gaps),
+        by_span=[[n, us / 1e3, c] for n, (us, c) in
+                 sorted(by.items(), key=lambda kv: -kv[1][0])],
+        longest=[[n, us / 1e3] for n, us in
+                 sorted(gaps, key=lambda g: -g[1])[:top]])
+    return out
+
+
+def print_gaps(g: dict) -> None:
+    share = 100 * g["idle_ms"] / g["window_ms"] if g["window_ms"] else 0.0
+    print(f"\n== device idle {g['idle_ms']:.3f}ms of {g['window_ms']:.3f}ms "
+          f"({share:.2f}%) in {g['gaps']} gaps; busy {g['busy_ms']:.3f}ms ==")
+    print(f"{'idle ms':>10} {'%idle':>6} {'gaps':>6}  innermost span")
+    for name, ms, cnt in g["by_span"]:
+        part = 100 * ms / g["idle_ms"] if g["idle_ms"] else 0.0
+        print(f"{ms:10.3f} {part:6.2f} {cnt:6d}  {name}")
+    print("longest gaps: " + ", ".join(f"{n} {ms:.3f}ms"
+                                       for n, ms in g["longest"]))
+
+
 def print_summary(summary: dict) -> None:
     for pl, lines in summary.items():
         for ln, s in lines.items():
@@ -103,12 +190,19 @@ def main(argv=None) -> dict:
     ap.add_argument("--line", default="",
                     help="substring filter on the event category (e.g. "
                          "kernel, cpu_op)")
+    ap.add_argument("--gaps", action="store_true",
+                    help="the device's idle gaps by the innermost "
+                         "prometheus.* span instead")
     args = ap.parse_args(argv)
     out = {}
     for path in find_traces(args.trace_dir):
         print(f"[trace] {path}", file=sys.stderr)
-        out[path] = summarize(path, args.top, args.plane, args.line)
-        print_summary(out[path])
+        if args.gaps:
+            out[path] = idle_gaps(path, args.top)
+            print_gaps(out[path])
+        else:
+            out[path] = summarize(path, args.top, args.plane, args.line)
+            print_summary(out[path])
     return out
 
 

@@ -654,6 +654,41 @@ def test_parse_trace_known_sums(tmp_path):
     assert list(parse_trace.main([str(tmp_path)])) == [str(path)]
 
 
+def test_parse_trace_gaps_by_innermost_span(tmp_path):
+    """Device busy 0-100, 150-300 (two streams overlapping), 400-450 and
+    460-500 us; the gaps 100-150 (middle 125: inside ``traj.step`` inside
+    ``t2s.batch``), 300-400 (350: inside ``gc`` inside ``traj.step``) and
+    450-460 (455: after every span)."""
+    def x(cat, name, ts, dur, pid=0, tid=7):
+        return {"ph": "X", "cat": cat, "name": name, "pid": pid, "tid": tid,
+                "ts": ts, "dur": dur}
+
+    events = [
+        x("kernel", "gemm", 0.0, 100.0), x("kernel", "gemm", 150.0, 100.0),
+        x("gpu_memcpy", "Memcpy DtoH", 200.0, 100.0, tid=9),
+        x("kernel", "softmax", 400.0, 50.0), x("gpu_memset", "set", 460.0,
+                                               40.0),
+        x("gpu_user_annotation", "prometheus.t2s.batch", 0.0, 500.0),
+        x("user_annotation", "prometheus.t2s.batch", 0.0, 440.0, 11, 11),
+        x("user_annotation", "prometheus.traj.step", 90.0, 300.0, 11, 11),
+        x("user_annotation", "prometheus.gc", 320.0, 50.0, 11, 11),
+        x("cpu_op", "aten::mm", 110.0, 30.0, 11, 11),
+        x("user_annotation", "other_range", 340.0, 5.0, 11, 11),
+    ]
+    path = tmp_path / "trace.json"
+    path.write_text(json.dumps({"traceEvents": events}))
+    g = parse_trace.idle_gaps(str(path))
+    assert g["busy_ms"] == pytest.approx(0.34)
+    assert g["window_ms"] == pytest.approx(0.5)
+    assert g["idle_ms"] == pytest.approx(0.16) and g["gaps"] == 3
+    assert g["by_span"] == [["prometheus.gc", pytest.approx(0.1), 1],
+                            ["prometheus.traj.step", pytest.approx(0.05), 1],
+                            ["(no span)", pytest.approx(0.01), 1]]
+    assert [n for n, _ in g["longest"]] == [
+        "prometheus.gc", "prometheus.traj.step", "(no span)"]
+    assert parse_trace.main([str(path), "--gaps"]) == {str(path): g}
+
+
 def test_profile_train_step_and_its_trace(tmp_path):
     res = profile_train_step.profile(
         small=True, iters=1, sections=profile_train_step.SECTIONS,

@@ -254,16 +254,15 @@ def test_step_timer_and_memory_stats_on_cpu():
         with timer.measure(sync={"y": [x @ x]}):
             x @ x
     assert timer.steps == 3 and timer.avg > 0
-    assert timer.rate(10) == pytest.approx(10 / timer.avg)
     # no card visible: no entry (the card run prints one per card)
     assert profiling.device_memory_stats() == []
 
 
 def test_trace_writes_a_chrome_trace(tmp_path):
     with profiling.trace(str(tmp_path / "tr")) as log_dir:
-        with profiling.annotate("gm_ldm_step"):
+        with profiling.span("gm_ldm_step"):
             torch.ones(32, 32) @ torch.ones(32, 32)
     path = os.path.join(log_dir, profiling.TRACE_FILE)
     with open(path) as fp:
         events = json.load(fp)["traceEvents"]
-    assert any(e.get("name") == "gm_ldm_step" for e in events)
+    assert any(e.get("name") == "prometheus.gm_ldm_step" for e in events)
