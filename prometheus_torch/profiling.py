@@ -29,7 +29,12 @@
   and the GC callback go in at the first span or stage of a recording,
   which also clears the previous recording's spans and counters, and come
   out at the first span, stage or read after it (``trace`` takes them out
-  as it ends).
+  as it ends). And ``graphs``: ``{name: {"captured": n, "replayed": n,
+  "eager": n}}`` for each network that can replay a CUDA graph
+  (``"traj"``, TrajDiT's trunk, ``models/traj_dit.py``), from
+  ``count_graph``: every forward counts once, as ``replayed`` or
+  ``eager``, and a forward that captured the graph first also counts as
+  ``captured``.
 - ``spans()``, ``counters()``, ``reset()``: the recording in memory (at
   most ``MAX_SPANS`` spans; ``counters()["spans_dropped"]`` counts the
   rest).
@@ -65,12 +70,14 @@ PREFIX = "prometheus."
 MAX_SPANS = 1 << 18
 # the start of the warning torch gives at an implicit sync in "warn" mode
 SYNC_WARNING = "called a synchronizing CUDA operation"
+GRAPH_EVENTS = ("captured", "replayed", "eager")
 
 enabled = torch._C._autograd._profiler_enabled
 now_ns = time.time_ns
 
 _spans: list[dict] = []
 _syncs: dict[str, int] = {}
+_graphs: dict[str, dict[str, int]] = {}
 _dropped = 0
 _ids = itertools.count(1)
 _units = itertools.count(1)
@@ -198,6 +205,18 @@ def stage(name: str, start_ns: int, end_ns: int) -> None:
              "tid": tid, "attrs": {}})
 
 
+def count_graph(name: str, event: str) -> None:
+    """Count one ``event`` (``"captured"``, ``"replayed"`` or ``"eager"``)
+    of the graphed network ``name`` while the tracer is on."""
+    if not enabled():
+        if _hooked is not None:
+            _unhook()
+        return
+    _hook()
+    per = _graphs.setdefault(name, dict.fromkeys(GRAPH_EVENTS, 0))
+    per[event] += 1
+
+
 def _show_warning(message, category, filename, lineno, file=None,
                   line=None):
     """``warnings.showwarning`` while the hooks are in: a sync warning is
@@ -292,10 +311,13 @@ def spans() -> list[dict]:
 
 
 def counters() -> dict:
-    """``{"host_syncs": {span name: count}, "spans_dropped": n}``."""
+    """``{"host_syncs": {span name: count}, "graphs": {network: {event:
+    count}}, "spans_dropped": n}``."""
     if not enabled():
         _unhook()
-    return {"host_syncs": dict(_syncs), "spans_dropped": _dropped}
+    return {"host_syncs": dict(_syncs),
+            "graphs": {k: dict(v) for k, v in _graphs.items()},
+            "spans_dropped": _dropped}
 
 
 def reset() -> None:
@@ -303,6 +325,7 @@ def reset() -> None:
     global _dropped
     _spans.clear()
     _syncs.clear()
+    _graphs.clear()
     _dropped = 0
 
 

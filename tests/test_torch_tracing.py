@@ -34,8 +34,10 @@ def test_off_by_default_records_nothing():
         gc.collect()
     t0 = profiling.now_ns()
     profiling.stage("render", t0, profiling.now_ns())
+    profiling.count_graph("traj", "replayed")
     assert profiling.spans() == []
-    assert profiling.counters() == {"host_syncs": {}, "spans_dropped": 0}
+    assert profiling.counters() == {"host_syncs": {}, "graphs": {},
+                                    "spans_dropped": 0}
     assert profiling.span("x") is profiling.span("x")    # the shared null
 
 

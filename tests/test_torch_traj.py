@@ -16,7 +16,13 @@ divides by sqrt(1 - alpha-bar) and carries each step's rounding on).
 Weights are random numpy arrays in the JAX tree's shapes, non-zero
 everywhere (flax zeroes ``adaLN_modulation`` and ``out_block``, so a fresh
 JAX TrajDiT predicts zeros).
+
+The trunk's CUDA graph replays only on a card (``tests/
+test_torch_traj_graph.py``); here every forward runs eagerly, and the tests
+hold the rules that decide it and that the eager path is what it was.
 """
+import contextlib
+import functools
 import math
 
 import jax
@@ -31,6 +37,7 @@ from prometheus_tpu.ops import schedulers as jax_sched
 from prometheus_tpu.systems.traj_dit_system import TrajDiTSystem as JaxTrajSys
 from prometheus_tpu.utils import cameras as jax_cams
 from prometheus_tpu.utils import quaternion as jax_quat
+from prometheus_torch import profiling
 from prometheus_torch.models import dit as torch_dit
 from prometheus_torch.models import traj_dit as torch_traj
 from prometheus_torch.ops import schedulers as torch_sched
@@ -293,3 +300,75 @@ def test_sample_tokens(traj_models, rng):
     cams = sys_.inference(t(text), num_inference_steps=10, image_size=64,
                           noise=noise)
     assert scaled_err(cams.numpy(), cams_ref) <= 1e-3
+
+
+def forward_before_graphs(m, x, y, tt):
+    """``TrajDiTModel.forward`` as it was before its trunk could replay a
+    CUDA graph."""
+    y = m.y_embedder(y.to(m.dtype))
+    h = m.in_block(x.to(m.dtype)) + m.pos_embed
+    c = torch.nn.functional.silu(m.t_embedder(tt))
+    for i in range(m.num_blocks):
+        h = getattr(m, f"block_{i}")(h, y, c)
+    return m.out_block(h)
+
+
+def _hooked(mod, case):
+    """A context in which ``case`` holds for a call of ``mod``."""
+    stack = contextlib.ExitStack()
+    if case != "grad":
+        stack.enter_context(torch.no_grad())
+    if case == "autocast":
+        stack.enter_context(torch.autocast("cpu", dtype=torch.bfloat16))
+    hook = {"trunk_hook": lambda: mod.block_1.mlp.fc1.register_forward_hook(
+                lambda *a: None),
+            "trunk_pre_hook": lambda: mod.y_embedder.register_forward_pre_hook(
+                lambda *a: None),
+            "global_hook": lambda: torch.nn.modules.module.
+                register_module_forward_pre_hook(lambda *a: None),
+            "out_block_hook": lambda: mod.out_block.register_forward_pre_hook(
+                lambda *a: None)}.get(case)
+    if hook is not None:
+        stack.callback(hook().remove)
+    return stack
+
+
+@pytest.mark.parametrize("case, reason", [
+    ("none", "device"), ("grad", "grad"), ("autocast", "autocast"),
+    ("trunk_hook", "hook"), ("trunk_pre_hook", "hook"),
+    ("global_hook", "hook"), ("out_block_hook", "device")])
+def test_eager_reason(traj_models, case, reason):
+    """Each rule that keeps the trunk eager, checked before the device: a
+    CPU input is the last reason, and a hook on ``out_block`` alone is
+    none."""
+    mod = traj_models[2]
+    with _hooked(mod, case):
+        assert mod.eager_reason(torch.zeros(2, 29, 11)) == reason
+    with torch.no_grad():
+        assert mod.eager_reason(torch.zeros(2, 29, 11)) == "device"
+
+
+def test_sample_tokens_on_cpu_unchanged(traj_models, rng):
+    mod = traj_models[2]
+    text = t(rng.normal(size=(2, 77, 64)))
+    noise = t(rng.normal(size=(2, 29, 11)))
+    got = TrajDiTSystem(model=mod).sample_tokens(text, num_inference_steps=7,
+                                                 noise=noise)
+    want = TrajDiTSystem(model=functools.partial(
+        forward_before_graphs, mod)).sample_tokens(
+            text, num_inference_steps=7, noise=noise)
+    assert torch.equal(got, want)
+
+
+def test_graph_counter_counts_cpu_forwards_eager(traj_models, rng):
+    mod = traj_models[2]
+    text = t(rng.normal(size=(1, 77, 64)))
+    with torch.profiler.profile():
+        TrajDiTSystem(model=mod).sample_tokens(text, num_inference_steps=4)
+        with torch.no_grad():
+            mod(torch.zeros(1, 29, 11), text, torch.zeros(1))
+    assert profiling.counters()["graphs"] == {
+        "traj": {"captured": 0, "replayed": 0, "eager": 5}}
+    # off, nothing is counted
+    TrajDiTSystem(model=mod).sample_tokens(text, num_inference_steps=2)
+    assert profiling.counters()["graphs"]["traj"]["eager"] == 5
