@@ -11,12 +11,20 @@ port's kernels, frozen (commit 078c4a5) from ``chip_smoke.py`` and
   for every (gaussian, pixel) pair whose alpha passes the cutoff, counted
   by the benchmark's own projection of the scene, never from the port's
   worklists.
+- An all-reduce of ``S`` bytes over the cards: ``S`` bytes each way
+  through each card's NVLink ports at NVLink 4's rate, whatever
+  implements the reduction. Each card must take in the ``S``-byte sum (or
+  a part of it for every chunk) and send every element of its own part
+  out once; a ring moves ``2 (W - 1) / W * S`` each way, the switch's
+  reduction (NVLS) ``(W + 1) / W * S``.
 """
 from __future__ import annotations
 
 PEAK_BF16_FLOPS = 989e12
 PEAK_FP32_FLOPS = 67e12
 PEAK_BYTES = 3.35e12
+# NVLink 4 of one H100 SXM, each way: 18 links of 25 GB/s
+PEAK_NVLINK_BYTES = 450e9
 
 # fp32 operations a kept (pixel, instance) pair costs, from chip_smoke.py's
 # COMP_OPS_WALKED + COMP_OPS_KEPT: offsets 2, quadratic form 7, exp and its
@@ -45,3 +53,14 @@ def attn_bwd_bound_s(shape) -> float:
 
 def composite_bound_s(pairs: float) -> float:
     return pairs * COMPOSITE_OPS_PER_PAIR / PEAK_FP32_FLOPS
+
+
+def reduced_bytes(leaves) -> float:
+    """The bytes of ``(numel, bytes_per_element)`` leaves."""
+    return float(sum(n * b for n, b in leaves))
+
+
+def allreduce_bound_s(nbytes: float) -> float:
+    """The least time an all-reduce of ``nbytes`` takes on cards joined by
+    NVLink 4: the bytes each way over its rate."""
+    return nbytes / PEAK_NVLINK_BYTES

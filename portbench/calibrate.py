@@ -11,7 +11,9 @@ Each seed runs what its run would compare (``Driver.record``: the
 compared units, or a training cell's followed steps; no window), prints
 one JSON line ``{"seed", "kind": "program" | "control", "numbers"}``.
 ``--fault`` plants one of ``faults.py``'s faults in the program first.
-The benchmark's own runs never run this.
+A cell on more than one card runs one process per card, started as
+``run.py`` starts them (``ranks.py``); rank 0's readings are printed once
+every rank has ended. The benchmark's own runs never run this.
 """
 from __future__ import annotations
 
@@ -60,6 +62,16 @@ def readings(cell: str, seeds: list[int], control_seeds: list[int],
             torch.cuda.empty_cache()
 
 
+def rank_readings(device, args) -> list:
+    """Every reading of ``args``'s seeds on one rank (``ranks.launch``)."""
+    from portbench.faults import FAULTS
+
+    seeds = [int(s) for s in args.seeds.split(",") if s]
+    ctl = [int(s) for s in args.control_seeds.split(",") if s]
+    patch = FAULTS[args.fault] if args.fault else None
+    return list(readings(args.workload, seeds, ctl, device, patch=patch))
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--workload", required=True)
@@ -71,17 +83,26 @@ def main(argv=None) -> int:
 
     import torch
 
+    from portbench import manifest as mf
     from portbench.faults import FAULTS
 
-    if not torch.cuda.is_available():
-        print("calibrate: no CUDA card", file=sys.stderr)
+    chips = int(mf.workload(mf.manifest(ROOT), args.workload).get("chips", 1))
+    if not torch.cuda.is_available() or torch.cuda.device_count() < chips:
+        print(f"calibrate: {args.workload} needs {chips} CUDA card(s)",
+              file=sys.stderr)
         return 2
     seeds = [int(s) for s in args.seeds.split(",") if s]
     ctl = [int(s) for s in args.control_seeds.split(",") if s]
     fp = open(args.out, "a") if args.out else None
     patch = FAULTS[args.fault] if args.fault else None
-    for rec in readings(args.workload, seeds, ctl, torch.device("cuda", 0),
-                        patch=patch):
+    if chips == 1:
+        recs = readings(args.workload, seeds, ctl, torch.device("cuda", 0),
+                        patch=patch)
+    else:
+        from portbench import ranks
+
+        recs = ranks.launch(chips, "cuda", rank_readings, args)
+    for rec in recs:
         line = json.dumps(dict(rec, workload=args.workload,
                                fault=args.fault or None))
         print(line, flush=True)

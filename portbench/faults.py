@@ -9,9 +9,15 @@ check catches them: the tests run them on the CPU at small sizes, and
   one half of the scenes; the orbit: the second half of the frames copied
   from the first);
 - ``altered``: an answer altered where it is produced (the rendered
-  images or frames, by 0.05).
+  images or frames, by 0.05);
+- ``exchange_left_out``: training over ranks, every rank takes part in the
+  gradient all-reduce and keeps its own gradient (no rank's update sees
+  the others' batches);
+- ``rank_skips_reduce``: the same on the last rank alone (its parameters
+  leave the others').
 
-A single card has no exchange between chips to leave out.
+A single card has no exchange between chips to leave out: there the last
+two change nothing.
 """
 from __future__ import annotations
 
@@ -95,5 +101,29 @@ def altered(drv):
             gm_ldm_system.render_gaussians)
 
 
+def exchange_left_out(drv):
+    """The train step's all-reduce of the gradients still runs, on copies,
+    and the step goes on with this rank's own gradients."""
+    from prometheus_torch.parallel import train_step
+
+    reduce, n = train_step.all_reduce_, len(drv._trained())
+
+    def kept(tensors, group=None):
+        if len(tensors) == n:
+            tensors = [t.clone() for t in tensors]
+        reduce(tensors, group)
+
+    train_step.all_reduce_ = kept
+
+
+def rank_skips_reduce(drv):
+    import torch.distributed as dist
+
+    if dist.is_initialized() and \
+            dist.get_rank() == dist.get_world_size() - 1:
+        exchange_left_out(drv)
+
+
 FAULTS = {"step_unchanged": step_unchanged, "half_batch": half_batch,
-          "altered": altered}
+          "altered": altered, "exchange_left_out": exchange_left_out,
+          "rank_skips_reduce": rank_skips_reduce}

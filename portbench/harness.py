@@ -11,9 +11,20 @@ runs under ``torch.profiler`` and the per-layer metrics are read from it,
 from the port's stage timings and from the benchmark's wrappers. After the
 window the program's state is freed and the plain reference judges what
 the window produced (``correct``).
+
+Over several cards (``ranks.py``) every rank runs this with its own card;
+set-up ends with a full garbage collection and a barrier on every rank;
+each unit ends with its sync, as alone, and then rank 0 decides whether
+the window goes on, for every rank, so that all run the same units.
+``failed`` is summed over the ranks; traced, each rank reduces its own
+trace and rank 0 reads the metrics from its own, with ``busy_s`` the mean
+over the ranks (``trace.merge_ranks``) and every rank's summary in
+``ctx["ranks"]``; the memory peak is the largest of the ranks', each read
+on its own card. Alone, nothing is exchanged.
 """
 from __future__ import annotations
 
+import gc
 import math
 import sys
 import time
@@ -22,6 +33,7 @@ import torch
 
 from . import manifest as mf
 from . import trace as tr
+from .ranks import Ranks
 
 BANNED = ("jax", "jaxlib", "flax", "prometheus_tpu")
 
@@ -33,14 +45,17 @@ def banned_modules() -> list[str]:
                   & set(BANNED))
 
 
-def device_info(device: torch.device, n: int) -> dict:
+def device_info(device: torch.device, n: int, ranks=None) -> dict:
+    """The result's ``device`` over ``n`` devices; the memory peak is this
+    process's card's, over ranks the largest of each rank's own card's."""
     if device.type != "cuda":
-        return {"platform": device.type, "kind": "cpu", "count": 1,
+        return {"platform": device.type, "kind": "cpu", "count": n,
                 "memory_peak_bytes": 0}
+    peak = torch.cuda.max_memory_allocated(device)
+    if ranks is not None:
+        peak = max(ranks.gather(peak))
     return {"platform": "gpu", "kind": torch.cuda.get_device_name(device),
-            "count": n,
-            "memory_peak_bytes": max(torch.cuda.max_memory_allocated(i)
-                                     for i in range(n))}
+            "count": n, "memory_peak_bytes": peak}
 
 
 def sync(device: torch.device) -> None:
@@ -78,10 +93,15 @@ def run_cell(cell: str, seed: int, seconds: float, trace: bool,
         patch(drv)
     drv.warmup()
     sync(device)
-    n_dev = wl.get("chips", 1)
+    ranks = Ranks.of_process()
+    n_dev = ranks.world if ranks else 1
+    if ranks is not None:
+        # every rank starts the window from a full collection, so that the
+        # ranks' collections come in step with the units they run alike
+        gc.collect()
+        ranks.barrier()
     if device.type == "cuda":
-        for i in range(n_dev):
-            torch.cuda.reset_peak_memory_stats(i)
+        torch.cuda.reset_peak_memory_stats(device)
     prof = None
     if trace:
         from torch.profiler import ProfilerActivity, profile
@@ -101,7 +121,10 @@ def run_cell(cell: str, seed: int, seconds: float, trace: bool,
         units += 1
         work += done
         failed += 0 if bool(ok) else 1
-        if time.perf_counter() - t0 >= seconds:
+        more = time.perf_counter() - t0 < seconds
+        if ranks is not None:
+            more = ranks.agree(more)
+        if not more:
             break
     window_s = time.perf_counter() - t0
     for i, row in enumerate(getattr(drv, "timings", [])):
@@ -110,13 +133,23 @@ def run_cell(cell: str, seed: int, seconds: float, trace: bool,
     if prof is not None:
         prof.__exit__(None, None, None)
         drv.trace_off()
-    dev = device_info(device, n_dev)
+    dev = device_info(device, n_dev, ranks)
+    if ranks is not None:
+        if len(set(ranks.gather(units))) != 1:
+            raise RuntimeError("the ranks ran different numbers of units")
+        failed = ranks.total(failed)
+    metrics = {}
     if trace:
-        summary = tr.summarize(prof, window_s, n_dev) if prof else {}
+        summary = tr.summarize(prof, window_s) if prof else {}
         del prof
-        ctx = dict(drv.layer_context(), cell=cell, units=units, work=work,
-                   window_s=window_s, trace=summary)
-        metrics = read_metrics(mf.per_layer(man, cell), ctx, base)
+        extra = {}
+        if ranks is not None:
+            extra["ranks"] = ranks.gather(summary)
+            summary = tr.merge_ranks(extra["ranks"])
+        if ranks is None or ranks.rank == 0:
+            ctx = dict(drv.layer_context(), cell=cell, units=units,
+                       work=work, window_s=window_s, trace=summary, **extra)
+            metrics = read_metrics(mf.per_layer(man, cell), ctx, base)
         dev.update(busy_s=summary.get("busy_s", 0.0), window_s=window_s)
     else:
         values = dict(drv.end_to_end(units, work, window_s),

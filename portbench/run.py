@@ -8,6 +8,11 @@ Exits with a code other than 0, and prints no result, where no CUDA card
 (or fewer than the cell asks for) is visible, where the port cannot be
 imported, and where JAX or the JAX package was loaded. Every build and
 kernel cache lives under ``build/`` in the checkout.
+
+A cell on more than one card runs one process per card, started by
+PyTorch's launcher (``ranks.py``); this process prints rank 0's result,
+and none where it or any rank loaded JAX or the JAX package. On one card
+nothing is started and no group is made.
 """
 from __future__ import annotations
 
@@ -28,6 +33,14 @@ os.environ["TRITON_CACHE_DIR"] = str(CACHE / "triton")
 os.environ["USE_FLAX"] = "0"
 os.environ.pop("PROMETHEUS_BIN_DECODE", None)     # the default binning
 sys.path.insert(0, str(ROOT))
+
+
+def measure(device, args, t_start: float) -> dict:
+    """The run of the cell on ``device``: one rank's, over several cards."""
+    from portbench import harness
+
+    return harness.run_cell(args.workload, args.seed, args.seconds,
+                            bool(args.trace), device, t_start)
 
 
 def main(argv=None) -> int:
@@ -52,12 +65,19 @@ def main(argv=None) -> int:
         return 2
     import prometheus_torch  # noqa: F401  (the program; fails without it)
 
-    out = harness.run_cell(args.workload, args.seed, args.seconds,
-                           bool(args.trace), torch.device("cuda", 0),
-                           T_START)
-    bad = harness.banned_modules()
+    if chips == 1:
+        out = measure(torch.device("cuda", 0), args, T_START)
+        bad = harness.banned_modules()
+    else:
+        from portbench import ranks
+
+        try:
+            out, bad = ranks.launch(chips, "cuda", measure, args,
+                                    T_START), []
+        except ranks.Banned as e:
+            bad = e.names
     if bad:
-        print(f"portbench: loaded {', '.join(bad)} in the measuring "
+        print(f"portbench: loaded {', '.join(bad)} in a measuring "
               "process", file=sys.stderr)
         return 3
     for name, c in out["check"].items():

@@ -29,6 +29,8 @@ SMALL_MIX = {
                       compare_frames=3),
     "train_s2_b8": dict(batch=2, views=2, images_sv=1, image_size=64, pool=3,
                         reference_rows=1),
+    "train_s2_dp4": dict(batch=2, views=2, images_sv=1, image_size=64,
+                         pool=3, reference_rows=1),
 }
 
 
@@ -37,6 +39,7 @@ SMALL_MIX = {
 CELLS = {"prometheus.t2s_b4": ("prometheus", "t2s_b4"),
          "gmldm.t2s_b4": ("gmldm", "t2s_b4_orbitcams"),
          "prometheus.train_s2_b8": ("prometheus", "train_s2_b8"),
+         "prometheus.train_s2_dp4": ("prometheus", "train_s2_dp4"),
          "prometheus.orbit_512": ("prometheus", "orbit_512")}
 
 

@@ -88,7 +88,8 @@ def test_cells_resolve():
         assert body["reduced"] == cfg["reduced"]
         mix = mf.traffic(w["traffic"])
         assert (mf.HERE / "drivers" / f"{mix['driver']}.py").is_file()
-        assert set(mf.limits(w["name"])) == set(
+        # a limits file may say where its limits came from
+        assert set(mf.limits(w["name"])) - {"from"} == set(
             mf.driver(mix["driver"]).NUMBERS)
     assert sum(w["chips"] == 4 for w in MAN["workloads"]) <= max(
         1, len(MAN["workloads"]) // 4)

@@ -22,7 +22,10 @@ SPAN_METRICS = {
                      "gc_ms_per_unit.t2s"),
     "prometheus.train_s2_b8": ("enqueue_ms_per_step.train",
                                "host_syncs_per_unit.train",
-                               "gc_ms_per_unit.train")}
+                               "gc_ms_per_unit.train"),
+    "prometheus.train_s2_dp4": ("enqueue_ms_per_step.dp",
+                                "host_syncs_per_unit.dp",
+                                "gc_ms_per_unit.dp")}
 NAMES = sorted({m for ms in SPAN_METRICS.values() for m in ms})
 
 

@@ -5,13 +5,17 @@ The kernel classes are those of ``chip_smoke.py::kernel_class`` and the
 busy / idle arithmetic that of ``chip_smoke.py::profile_run`` and
 ``tools/parse_trace.py`` (commit 078c4a5), frozen: user annotations are
 left out, as there; one change: busy time is the union of the device
-intervals, so overlapping streams count once.
+intervals, so overlapping streams count once. One class added: an NCCL
+kernel (a collective between cards) is ``collective``, and the durations
+of those kernels are kept in launch order, so that the readers can set
+the same collective on every rank side by side.
 """
 from __future__ import annotations
 
 import numpy as np
 
-CLASSES = (("flash_attn_fwd", ("flash_fwd",)),
+CLASSES = (("collective", ("nccl",)),
+           ("flash_attn_fwd", ("flash_fwd",)),
            ("flash_attn_bwd", ("flash_bwd",)),
            ("composite_fwd", ("composite_fwd",)),
            ("composite_bwd", ("composite_bwd",)),
@@ -69,12 +73,14 @@ def _union(starts: np.ndarray, ends: np.ndarray):
     return np.array(ms), np.array(me)
 
 
-def summarize(prof, window_s: float, n_devices: int = 1) -> dict:
-    """``busy_s`` (device time with something running, averaged over the
-    devices), ``kernels`` ``{name: seconds}``, ``classes`` ``{class:
-    seconds}``, ``device_ops`` and ``idle_gaps`` (the 10 largest each,
-    ``[name, seconds]``; a gap is named after the innermost host operation
-    that spans its middle)."""
+def summarize(prof, window_s: float) -> dict:
+    """``busy_s`` (device time with something running), ``kernels``
+    ``{name: seconds}``, ``classes`` ``{class: seconds}``, ``collectives``
+    (each NCCL kernel's seconds, in the order of their starts),
+    ``device_ops`` and ``idle_gaps`` (the 10 largest each, ``[name,
+    seconds]``; a gap is named after the innermost host operation that
+    spans its middle). A run over several cards reduces each rank's own
+    trace (``merge_ranks``)."""
     dev, host = _events(prof)
     kernels: dict = {}
     for t0, t1, name in dev:
@@ -85,13 +91,15 @@ def summarize(prof, window_s: float, n_devices: int = 1) -> dict:
         classes[c] = classes.get(c, 0.0) + s
     out = {"busy_s": 0.0, "window_s": window_s, "kernels": kernels,
            "classes": classes, "launches": len(dev), "device_ops": [],
-           "idle_gaps": []}
+           "idle_gaps": [],
+           "collectives": [(t1 - t0) * 1e-9 for t0, t1, name in sorted(dev)
+                           if kernel_class(name) == "collective"]}
     if not dev:
         return out
     arr = np.array([(a, b) for a, b, _ in dev], dtype=np.int64)
     arr = arr[np.argsort(arr[:, 0], kind="stable")]
     ms, me = _union(arr[:, 0], arr[:, 1])
-    out["busy_s"] = float((me - ms).sum()) * 1e-9 / max(n_devices, 1)
+    out["busy_s"] = float((me - ms).sum()) * 1e-9
     out["device_ops"] = [[n, s] for n, s in sorted(
         kernels.items(), key=lambda kv: -kv[1])[:10]]
     gaps_s, gaps_e = me[:-1], ms[1:]
@@ -110,3 +118,11 @@ def summarize(prof, window_s: float, n_devices: int = 1) -> dict:
                 label = names[j]
         out["idle_gaps"].append([label, (g1 - g0) * 1e-9])
     return out
+
+
+def merge_ranks(summaries: list) -> dict:
+    """One card's view of a run over several, from each rank's own
+    ``summarize``: rank 0's summary (its kernels, classes, device ops and
+    gaps) with ``busy_s`` the mean over the ranks."""
+    busy = sum(s.get("busy_s", 0.0) for s in summaries) / len(summaries)
+    return dict(summaries[0], busy_s=busy)
